@@ -1,0 +1,73 @@
+"""Weights across the two packages: the JAX package's param tree as numpy
+arrays in, the port's tree of tensors out, and back.
+
+Both trees have the same layout, leaf for leaf: `embed (V,d)`, stacked
+layers under `groups[0]` (`wq (L,d,H,Dh)`, `wo (L,H,Dh,d)`, `ffn.gate/up/down`,
+norms), `lm_head (d,V)` unless tied, `value_head (d,1)` in float32.
+bfloat16 arrays are carried by their bits (numpy has no bfloat16 of its
+own; `params_to_numpy` returns `ml_dtypes.bfloat16` arrays for them).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.model import param_shapes
+
+
+def _to_tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
+            torch.bfloat16)
+    else:
+        # a copy: the tensor must not share (possibly read-only) memory
+        # with the caller's array
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device=device, dtype=dtype)
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
+    """Map a numpy param tree in the JAX layout onto `device` (the card
+    unless the caller asks for the CPU), in the config's dtypes. Raises on
+    a missing or extra leaf or a shape mismatch."""
+    def walk(node, spec, path):
+        if isinstance(spec, dict):
+            if not isinstance(node, dict) or set(node) != set(spec):
+                raise ValueError(f"{path or 'params'}: keys "
+                                 f"{sorted(node) if isinstance(node, dict) else type(node)}"
+                                 f" != {sorted(spec)}")
+            return {k: walk(node[k], spec[k], f"{path}/{k}") for k in spec}
+        if isinstance(spec, list):
+            if not isinstance(node, (list, tuple)) or len(node) != len(spec):
+                raise ValueError(f"{path}: expected a list of {len(spec)}")
+            return [walk(n, s, f"{path}[{i}]")
+                    for i, (n, s) in enumerate(zip(node, spec))]
+        shape, dtype, _ = spec
+        if tuple(np.shape(node)) != tuple(shape):
+            raise ValueError(f"{path}: shape {np.shape(node)} != {shape}")
+        return _to_tensor(node, dtype, device)
+
+    device = resolve_device(device)
+    return walk(tree, param_shapes(cfg), "")
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_numpy(params) -> Any:
+    """The inverse of `params_from_numpy`: a numpy tree in the JAX layout."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [params_to_numpy(v) for v in params]
+    return _to_numpy(params)

@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels.
+
+Each `csrc/<name>.cu` has a plain C interface. It is compiled with `nvcc`
+for sm_90a into its own shared library under `build/repro_torch/` at the
+repository root (listed in `.gitignore`) at first use, and loaded with
+`ctypes`. The library's file name carries a hash of its sources, so an
+edited kernel is rebuilt and a stale library is never loaded. `build()`
+starts one `nvcc` per source, all at once.
+
+Nothing here runs at import time: this module is imported on machines
+with no CUDA toolkit, where the kernels' plain versions run instead.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("decode_attention", "prefill_attention", "flash_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
+        return str(Path(cuda_home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")   # the toolkit's default prefix
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every missing library of `names` (default: all), one nvcc
+    process per source, started together. Returns seconds per library
+    built (0.0 for one already present). Raises with nvcc's output if a
+    build fails. ptxas's register and shared-memory report lands in
+    `<library>.log` beside the library."""
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    out: Dict[str, float] = {}
+    for name in names:
+        dst = lib_path(name)
+        if dst.exists():
+            out[name] = 0.0
+            continue
+        tmp = dst.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, dst, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, dst, t0) in procs.items():
+        log, _ = proc.communicate()
+        out[name] = time.perf_counter() - t0
+        dst.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name} (exit {proc.returncode})\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, dst)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `name`, built first if missing."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = lib_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        _libs[name] = lib
+    return lib

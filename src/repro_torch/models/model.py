@@ -1,0 +1,204 @@
+"""The dense GQA decoder LM: parameters, full-sequence forward, one-token
+decode and chunked prefill against the slot cache.
+
+Parameters are a nested dict in the JAX package's layout (stacked `(L, ...)`
+leaves under `groups[0]`), so a tree converts leaf for leaf between the two
+packages (`repro_torch.convert`). The JAX package scans over layers; here a
+Python loop walks per-layer views of the stacked leaves. Decode and prefill
+update the cache tensors in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import init_leaf, rms_norm, swiglu
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """(shape, dtype, init scale) of every leaf, in the JAX tree layout.
+    Scale: stddev of the normal init; 0.0 zeros; -1.0 ones."""
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"{cfg.arch_type!r}: only the dense GQA decoder is ported "
+            f"(ROADMAP.md queue A.6 ports the other architectures)")
+    L, d, V, dt = cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.dtype
+    H, KV, Dh, F = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff
+    out_scale = 0.02 / math.sqrt(2 * L)
+    a = {
+        "wq": ((L, d, H, Dh), dt, 0.02),
+        "wk": ((L, d, KV, Dh), dt, 0.02),
+        "wv": ((L, d, KV, Dh), dt, 0.02),
+        "wo": ((L, H, Dh, d), dt, out_scale),
+    }
+    if cfg.use_qk_norm:
+        a["qn"] = ((L, Dh), dt, -1.0)
+        a["kn"] = ((L, Dh), dt, -1.0)
+    group = {
+        "norm1": ((L, d), dt, -1.0),
+        "attn": a,
+        "norm2": ((L, d), dt, -1.0),
+        "ffn": {"gate": ((L, d, F), dt, 0.02), "up": ((L, d, F), dt, 0.02),
+                "down": ((L, F, d), dt, out_scale)},
+    }
+    shapes: Dict[str, Any] = {
+        "embed": ((V, d), dt, 0.02),
+        "final_norm": ((d,), dt, -1.0),
+        "groups": [group],
+    }
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = ((d, V), dt, 0.02)
+    if cfg.use_value_head:
+        shapes["value_head"] = ((d, 1), torch.float32, 0.0)
+    return shapes
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
+    """Random weights from `seed`, drawn by a generator on `device` (the
+    card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [build(v) for v in node]
+        shape, dtype, scale = node
+        return init_leaf(shape, dtype, scale, gen, device)
+
+    return build(param_shapes(cfg))
+
+
+def layer_view(tree, l: int):
+    """Layer `l` of a stacked `(L, ...)` subtree, as views."""
+    if isinstance(tree, dict):
+        return {k: layer_view(v, l) for k, v in tree.items()}
+    return tree[l]
+
+
+def _head(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _ffn(cfg: ModelConfig, h, lp):
+    x = rms_norm(h, lp["norm2"], cfg.norm_eps)
+    f = lp["ffn"]
+    return h + swiglu(x, f["gate"], f["up"], f["down"])
+
+
+def _outputs(params: Params, cfg: ModelConfig, h, logits: bool):
+    """Final norm, then logits and values as the config asks."""
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    out: Dict[str, Any] = {}
+    if logits:
+        out["logits"] = h @ _head(params, cfg)
+    if cfg.use_value_head:
+        out["values"] = (h.float() @ params["value_head"])[..., 0]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# forward (full sequence)
+# ---------------------------------------------------------------------------
+
+def forward(params: Params, tokens, positions, cfg: ModelConfig, *,
+            return_cache: bool = False, logits: bool = True):
+    """tokens, positions: (B,S) integer tensors. Returns dict(logits?,
+    values?, cache?). `logits=False` skips the (B,S,V) head product: eager
+    PyTorch would compute it even when only the cache is wanted (the KV
+    recompute), where XLA dropped it as dead code."""
+    gp = params["groups"][0]
+    h = params["embed"][tokens]
+    ks: List[torch.Tensor] = []
+    vs: List[torch.Tensor] = []
+    for l in range(cfg.n_layers):
+        lp = layer_view(gp, l)
+        x = rms_norm(h, lp["norm1"], cfg.norm_eps)
+        a, (k, v) = attn.gqa_forward(lp["attn"], x, positions, cfg,
+                                     return_kv=True)
+        h = _ffn(cfg, h + a, lp)
+        if return_cache:
+            ks.append(k)
+            vs.append(v)
+    out = _outputs(params, cfg, h, logits)
+    if return_cache:
+        out["cache"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# decode (one token against the cache)
+# ---------------------------------------------------------------------------
+
+def decode_step(params: Params, tokens, positions, cache, cache_index,
+                cfg: ModelConfig, *, ring: Optional[bool] = None):
+    """tokens, positions: (B,1); cache: {"k", "v"} (L,B,CL,KV,Dh), updated
+    in place; cache_index: (B,) write positions. Returns dict(logits
+    (B,1,V), values (B,1)?, cache). ring=None takes the full ring exactly
+    when the config is sliding-window (as the JAX package does); the engine
+    passes ring=False and masks by count."""
+    if ring is None:
+        ring = cfg.attention_variant == "sliding_window"
+    gp = params["groups"][0]
+    h = params["embed"][tokens]
+    for l in range(cfg.n_layers):
+        lp = layer_view(gp, l)
+        x = rms_norm(h, lp["norm1"], cfg.norm_eps)
+        a = attn.gqa_decode(lp["attn"], x, positions, cache["k"][l],
+                            cache["v"][l], cache_index, cfg, ring)
+        h = _ffn(cfg, h + a, lp)
+    out = _outputs(params, cfg, h, logits=True)
+    out["cache"] = cache
+    return out
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill (batched prompt admission against the slot cache)
+# ---------------------------------------------------------------------------
+
+def prefill_chunk(params: Params, tokens, prompt_len, offset: int, admit_mask,
+                  cache, cfg: ModelConfig, *, chunk: int,
+                  logits: bool = False):
+    """One chunk of chunked-prefill admission: prompt positions
+    [offset, offset+chunk) of every slot through the whole stack, K/V
+    written into the cache in place. tokens: (B,T) slot token buffer;
+    prompt_len: (B,); offset: host int, with offset + chunk <= T,
+    offset % chunk == 0 and chunk | CL; admit_mask: (B,) bool, True for
+    the slots admitted by this refill (the others take part in the compute
+    but their cache is untouched). Writes are also masked to positions
+    < prompt_len - 1 of each row, so a wrapped ring never takes prompt
+    garbage. Admission needs no logits (the first completion token is
+    sampled by the decode step at n_cached = prompt_len - 1); `logits=True`
+    also runs the last FFN and the head, to check the chunk's forward.
+    Returns dict(cache, logits (B,C,V)?, values (B,C)?)."""
+    B = tokens.shape[0]
+    toks = tokens[:, offset:offset + chunk]
+    positions = (offset + torch.arange(chunk, device=tokens.device)
+                 )[None].expand(B, chunk)
+    pos_valid = positions < (prompt_len[:, None] - 1)            # (B,C)
+    kv_write_mask = admit_mask[:, None] & pos_valid              # (B,C)
+    gp = params["groups"][0]
+    h = params["embed"][toks]
+    for l in range(cfg.n_layers):
+        lp = layer_view(gp, l)
+        x = rms_norm(h, lp["norm1"], cfg.norm_eps)
+        a = attn.gqa_prefill_chunk(lp["attn"], x, positions, cache["k"][l],
+                                   cache["v"][l], offset, kv_write_mask, cfg)
+        if logits or l + 1 < cfg.n_layers:  # else the last FFN feeds nothing
+            h = _ffn(cfg, h + a, lp)
+    out = _outputs(params, cfg, h, logits=True) if logits else {}
+    out["cache"] = cache
+    return out
