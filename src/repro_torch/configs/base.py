@@ -34,6 +34,13 @@ class ModelConfig:
     tie_embeddings: bool = False
     # value head for RL (paper Eq. 4 baseline)
     use_value_head: bool = True
+    # activation checkpointing around each layer (training memory)
+    remat: bool = False
+    # fused linear-cross-entropy trainer loss: when the trainer passes loss
+    # targets, `forward` skips the (B,S,V) logits and returns per-token
+    # logprob/lse/entropy from `kernels.ops.fused_logprob`. Inference paths
+    # (decode/prefill) are unaffected.
+    fused_loss: bool = False
     source: str = ""
 
 

@@ -6,6 +6,8 @@ layers under `groups[0]` (`wq (L,d,H,Dh)`, `wo (L,H,Dh,d)`, `ffn.gate/up/down`,
 norms), `lm_head (d,V)` unless tied, `value_head (d,1)` in float32.
 bfloat16 arrays are carried by their bits (numpy has no bfloat16 of its
 own; `params_to_numpy` returns `ml_dtypes.bfloat16` arrays for them).
+A train state converts the same way: params, the Adam step and float32
+moments `m`, `v` in the params' layout, and the version.
 """
 from __future__ import annotations
 
@@ -31,10 +33,9 @@ def _to_tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
-    """Map a numpy param tree in the JAX layout onto `device` (the card
-    unless the caller asks for the CPU), in the config's dtypes. Raises on
-    a missing or extra leaf or a shape mismatch."""
+def _tree_from_numpy(tree, cfg: ModelConfig, device, dtype=None):
+    """The params walk of `params_from_numpy`; `dtype` overrides every
+    leaf's dtype (the float32 Adam moments)."""
     def walk(node, spec, path):
         if isinstance(spec, dict):
             if not isinstance(node, dict) or set(node) != set(spec):
@@ -47,13 +48,47 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
                 raise ValueError(f"{path}: expected a list of {len(spec)}")
             return [walk(n, s, f"{path}[{i}]")
                     for i, (n, s) in enumerate(zip(node, spec))]
-        shape, dtype, _ = spec
+        shape, leaf_dtype, _ = spec
         if tuple(np.shape(node)) != tuple(shape):
             raise ValueError(f"{path}: shape {np.shape(node)} != {shape}")
-        return _to_tensor(node, dtype, device)
+        return _to_tensor(node, dtype or leaf_dtype, device)
 
-    device = resolve_device(device)
     return walk(tree, param_shapes(cfg), "")
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
+    """Map a numpy param tree in the JAX layout onto `device` (the card
+    unless the caller asks for the CPU), in the config's dtypes. Raises on
+    a missing or extra leaf or a shape mismatch."""
+    return _tree_from_numpy(tree, cfg, resolve_device(device))
+
+
+def _field(node, name: str):
+    """`node.name` of a NamedTuple (the JAX TrainState as numpy) or
+    `node[name]` of a dict."""
+    return node[name] if isinstance(node, dict) else getattr(node, name)
+
+
+def train_state_from_numpy(state, cfg: ModelConfig, device="cuda"):
+    """A train state (the JAX package's `TrainState` with numpy leaves, or
+    the dict `train_state_to_numpy` returns) as the port's `TrainState` on
+    `device` (the card unless the caller asks for the CPU)."""
+    from repro_torch.core.trainer import TrainState
+    from repro_torch.optim.adam import AdamState
+    device = resolve_device(device)
+    opt = _field(state, "opt")
+
+    def scalar(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32,
+                            device=device)
+
+    return TrainState(
+        params=_tree_from_numpy(_field(state, "params"), cfg, device),
+        opt=AdamState(
+            step=scalar(_field(opt, "step")),
+            m=_tree_from_numpy(_field(opt, "m"), cfg, device, torch.float32),
+            v=_tree_from_numpy(_field(opt, "v"), cfg, device, torch.float32)),
+        version=scalar(_field(state, "version")))
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -71,3 +106,13 @@ def params_to_numpy(params) -> Any:
     if isinstance(params, (list, tuple)):
         return [params_to_numpy(v) for v in params]
     return _to_numpy(params)
+
+
+def train_state_to_numpy(state) -> dict:
+    """The inverse of `train_state_from_numpy`: {"params", "opt": {"step",
+    "m", "v"}, "version"} with numpy leaves in the JAX layout."""
+    return {"params": params_to_numpy(state.params),
+            "opt": {"step": _to_numpy(state.opt.step),
+                    "m": params_to_numpy(state.opt.m),
+                    "v": params_to_numpy(state.opt.v)},
+            "version": _to_numpy(state.version)}

@@ -10,10 +10,11 @@ paper's mechanism (§5.1 shows this is safe; `recompute_kv=True` reproduces
 its ablation). Every sampled token is stamped with its behavior logprob
 and the weight version it was sampled under.
 
-Device state is updated in place. The only device-to-host read of a
-decode step is the (H,) `finished` mask; the scheduling scalars have
-numpy mirrors on the host. Only the slot cache is ported
-(`EngineConfig.cache="paged"` raises).
+Device state is updated in place, with autograd off: the engine never
+builds a graph, even when it is handed parameters that require grad. The
+only device-to-host read of a decode step is the (H,) `finished` mask;
+the scheduling scalars have numpy mirrors on the host. Only the slot
+cache is ported (`EngineConfig.cache="paged"` raises).
 """
 from __future__ import annotations
 
@@ -227,6 +228,7 @@ class GenerationEngine:
                                  f"{self.device}")
 
     # ----- weights -----------------------------------------------------
+    @torch.no_grad()
     def set_weights(self, params, version: int,
                     recompute_kv: bool = False) -> None:
         """In-flight weight update: swap μ, keep the (stale) KV cache.
@@ -347,6 +349,7 @@ class GenerationEngine:
             rejects_left -= 1
         return None, 0, 0
 
+    @torch.no_grad()
     def refill(self, now: float = 0.0) -> int:
         """Fill inactive slots with fresh prompts. The prompt source may
         return None to decline; those slots stay inactive. Returns the
@@ -408,6 +411,7 @@ class GenerationEngine:
         return int(self._host_active.sum())
 
     # ----- stepping -----------------------------------------------------
+    @torch.no_grad()
     def step(self, task: Optional[MathTask] = None,
              now: float = 0.0) -> List[Rollout]:
         """Generate one token on every active slot; returns the rollouts

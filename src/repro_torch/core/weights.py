@@ -16,6 +16,13 @@ from typing import Any, List, Sequence, Tuple
 _LEAF = object()
 
 
+def _rebuild(node, items):
+    """A list, tuple or NamedTuple like `node` holding `items`."""
+    if hasattr(node, "_fields"):
+        return type(node)(*items)
+    return type(node)(items)
+
+
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
     """(leaves, treedef) with leaves in sorted-key / list order."""
     leaves: List[Any] = []
@@ -24,7 +31,7 @@ def tree_flatten(tree) -> Tuple[List[Any], Any]:
         if isinstance(node, dict):
             return {k: walk(node[k]) for k in sorted(node)}
         if isinstance(node, (list, tuple)):
-            return type(node)(walk(v) for v in node)
+            return _rebuild(node, [walk(v) for v in node])
         leaves.append(node)
         return _LEAF
 
@@ -38,7 +45,7 @@ def tree_unflatten(treedef, leaves: Sequence[Any]):
         if isinstance(node, dict):
             return {k: walk(node[k]) for k in sorted(node)}
         if isinstance(node, (list, tuple)):
-            return type(node)(walk(v) for v in node)
+            return _rebuild(node, [walk(v) for v in node])
         return next(it)
 
     return walk(treedef)

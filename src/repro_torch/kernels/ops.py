@@ -1,5 +1,4 @@
-"""The attention kernels' wrappers: the only entry points the model layer
-calls.
+"""The kernels' wrappers: the only entry points the model layer calls.
 
 Each wrapper dispatches on the device of its inputs. On CPU tensors it runs
 the kernel's plain PyTorch version from `kernels/ref.py`. On CUDA tensors it
@@ -10,8 +9,12 @@ counts the kernel launches, so a run can show that it went through them.
 
 Layouts are the JAX package's (`repro.kernels.ops`). The kernels read
 their inputs through the strides, so the wrappers make no transposed or
-contiguous copies; they need the last dimension contiguous, every other
-stride and the head dims a multiple of 16 bytes, and 16-byte aligned data.
+contiguous copies. The attention kernels need the last dimension
+contiguous, every other stride and the head dims a multiple of 16 bytes,
+and 16-byte aligned data; they have no backward (neither have the Pallas
+kernels), so on the card they refuse inputs that autograd would
+differentiate rather than cut the gradient silently. `fused_logprob` is a
+`torch.autograd.Function` whose forward and backward are kernels.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
 launches: Dict[str, int] = {"flash_decode": 0, "prefill_attention": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "fused_logprob_fwd": 0,
+                            "fused_logprob_bwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448        # bytes of shared memory a block may use on sm_90
@@ -76,6 +80,16 @@ def _check(name: str, tensors: Dict[str, torch.Tensor], rows: int, dk: int,
     return code
 
 
+def _forward_only(name: str, *tensors: torch.Tensor) -> None:
+    """The attention kernels have no backward: a differentiated call would
+    return an output with no autograd history and cut the gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel is forward-only, and an input requires "
+            f"grad; run it under torch.no_grad() (training attention on "
+            f"packed batches takes the plain path, models/attention.py)")
+
+
 def _raise_on(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
@@ -112,6 +126,7 @@ def flash_decode(q, k_cache, v_cache, lengths, *, scale: float):
         return ref.flash_decode_ref(q, k_cache, v_cache, lengths, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
+    _forward_only("flash_decode", q, k_cache, v_cache)
     B, H, Dk = q.shape
     Bc, CL, KV, Dk2 = k_cache.shape
     Dv = v_cache.shape[-1]
@@ -159,6 +174,7 @@ def prefill_attention(q, k_chunk, v_chunk, k_cache, v_cache, offset: int, *,
                                          v_cache, offset, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"prefill_attention: unsupported device {q.device}")
+    _forward_only("prefill_attention", q, k_chunk, v_chunk, k_cache, v_cache)
     B, C, H, Dk = q.shape
     CL, KV = k_cache.shape[1], k_cache.shape[2]
     Dv = v_cache.shape[-1]
@@ -202,6 +218,7 @@ def flash_attention(q, k, v, *, scale: float, window: int = 0):
         return ref.flash_attention_ref(q, k, v, scale=scale, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _forward_only("flash_attention", q, k, v)
     B, H, S, Dk = q.shape
     KV, Dv = k.shape[1], v.shape[-1]
     if (k.shape != (B, KV, S, Dk) or v.shape[:3] != (B, KV, S) or H % KV
@@ -222,3 +239,166 @@ def flash_attention(q, k, v, *, scale: float, window: int = 0):
     _raise_on("flash_attention", err)
     launches["flash_attention"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# fused_logprob
+# ---------------------------------------------------------------------------
+
+_TILE = 128                 # rows and vocab columns of one tile (csrc)
+_SCRATCH_FLOATS = 1 << 26   # bound on the (N, Vc) logits-gradient chunk
+
+
+def _fused_check(hidden, head, targets, transpose_head: bool):
+    """Validate the CUDA operands of fused_logprob; returns (N, D, V, dtype
+    code, strides) with the head's strides given as (d, v)."""
+    if hidden.dim() != 2 or head.dim() != 2 or targets.dim() != 1:
+        raise ValueError(f"fused_logprob: shapes hidden {tuple(hidden.shape)}, "
+                         f"head {tuple(head.shape)}, targets "
+                         f"{tuple(targets.shape)}")
+    N, D = hidden.shape
+    V = head.shape[0] if transpose_head else head.shape[1]
+    if (head.shape[1] if transpose_head else head.shape[0]) != D \
+            or targets.shape[0] != N:
+        raise ValueError(f"fused_logprob: hidden {tuple(hidden.shape)}, head "
+                         f"{tuple(head.shape)} (transpose_head="
+                         f"{transpose_head}), targets {tuple(targets.shape)}")
+    code = _DTYPE_CODE.get(hidden.dtype)
+    if code is None or head.dtype != hidden.dtype:
+        raise TypeError(f"fused_logprob: hidden {hidden.dtype}, head "
+                        f"{head.dtype}; both float32 or both bfloat16")
+    for t in (head, targets):
+        if t.device != hidden.device:
+            raise ValueError(f"fused_logprob: operands on {hidden.device} "
+                             f"and {t.device}")
+    sd, sv = head.stride()[::-1] if transpose_head else head.stride()
+    strides = (ctypes.c_longlong * 4)(hidden.stride(0), hidden.stride(1),
+                                      sd, sv)
+    return N, D, V, code, strides
+
+
+def _vocab_chunk(N: int, V: int) -> int:
+    """Vocab columns per chunk of the backward's float32 (N, Vc) scratch."""
+    full = -(-V // _TILE) * _TILE
+    fit = max(_TILE, _SCRATCH_FLOATS // max(N, 1) // _TILE * _TILE)
+    return min(full, fit)
+
+
+def _fused_fwd(hidden, head, targets, transpose_head: bool):
+    N, D, V, code, strides = _fused_check(hidden, head, targets,
+                                          transpose_head)
+    dev = hidden.device
+    tgt = targets.to(torch.int32).contiguous()
+    lp, lse, ent = (torch.empty(N, dtype=torch.float32, device=dev)
+                    for _ in range(3))
+    # enough (row tile, vocab split) blocks for two per SM
+    row_tiles, v_tiles = -(-N // _TILE), -(-V // _TILE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split = max(1, min(v_tiles, -(-2 * sms // row_tiles)))
+    ws = torch.empty((4, n_split, N), dtype=torch.float32, device=dev)
+    fn = _lib("fused_logprob", "repro_fused_logprob_fwd",
+              [_i] + [_vp] * 7 + [_i] * 3 + [_vp, _i, _vp])
+    with torch.cuda.device(dev):
+        err = fn(code, hidden.data_ptr(), head.data_ptr(), tgt.data_ptr(),
+                 lp.data_ptr(), lse.data_ptr(), ent.data_ptr(), ws.data_ptr(),
+                 N, D, V, ctypes.cast(strides, ctypes.c_void_p), n_split,
+                 _stream(hidden))
+    _raise_on("fused_logprob_fwd", err)
+    launches["fused_logprob_fwd"] += 1
+    return lp, lse, ent
+
+
+def _row_args(targets, lse, c0, g_lp, g_ent):
+    tgt = targets.to(torch.int32).contiguous()
+    rows = [t.float().contiguous() for t in (lse, c0, g_lp, g_ent)]
+    return [tgt] + rows
+
+
+def fused_logprob_bwd(hidden, head, targets, lse, c0, g_lp, g_ent, *,
+                      transpose_head: bool, dw_chunks: int = 1,
+                      want_dh: bool = True, want_dw: bool = True):
+    """(dhidden, dhead) from the saved lse and the row coefficients of
+    `ref.logits_grad_coef`: dh (N, D) in the hidden dtype, dW in the head's
+    layout and dtype, a gradient not wanted None. One launch computes each
+    vocab chunk's logits gradient once and feeds both products. dw_chunks >
+    1 cuts the rows into that many ranges whose float32 partials are summed
+    here."""
+    if not (want_dh or want_dw):
+        return None, None
+    N, D, V, code, strides = _fused_check(hidden, head, targets,
+                                          transpose_head)
+    dev = hidden.device
+    rows = _row_args(targets, lse, c0, g_lp, g_ent)
+    chunk = _vocab_chunk(N, V)
+    per = -(-N // max(int(dw_chunks), 1))
+    n_parts = -(-N // per)
+    dl = torch.empty((N, chunk), dtype=torch.float32, device=dev)
+    dh = acc = dw = None
+    if want_dh:
+        dh = torch.empty((N, D), dtype=hidden.dtype, device=dev)
+        acc = torch.empty((N, D) if V > chunk else (0,), dtype=torch.float32,
+                          device=dev)
+    o_sd = o_sv = 0
+    if want_dw:
+        if n_parts > 1:
+            dw = torch.empty((n_parts,) + tuple(head.shape),
+                             dtype=torch.float32, device=dev)
+        else:
+            dw = torch.empty(tuple(head.shape), dtype=head.dtype, device=dev)
+        o_sd, o_sv = dw.stride()[-2:][::-1] if transpose_head \
+            else dw.stride()[-2:]
+    fn = _lib("fused_logprob", "repro_fused_logprob_bwd",
+              [_i] + [_vp] * 11 + [_i] * 3 + [_vp, _ll, _ll, _i, _i, _ll, _i,
+                                              _vp])
+    with torch.cuda.device(dev):
+        err = fn(code, hidden.data_ptr(), head.data_ptr(),
+                 *(t.data_ptr() for t in rows),
+                 None if dh is None else dh.data_ptr(),
+                 None if acc is None else acc.data_ptr(),
+                 None if dw is None else dw.data_ptr(), dl.data_ptr(),
+                 N, D, V, ctypes.cast(strides, ctypes.c_void_p), o_sd, o_sv,
+                 per, n_parts, D * V, chunk, _stream(hidden))
+    _raise_on("fused_logprob_bwd", err)
+    launches["fused_logprob_bwd"] += 1
+    if dw is not None and n_parts > 1:
+        dw = dw.sum(0).to(head.dtype)
+    return dh, dw
+
+
+class _FusedLogprob(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hidden, head, targets, transpose_head, dw_chunks):
+        lp, lse, ent = _fused_fwd(hidden, head, targets, transpose_head)
+        ctx.save_for_backward(hidden, head, targets, lse, ent)
+        ctx.cfg = (transpose_head, dw_chunks)
+        return lp, lse, ent
+
+    @staticmethod
+    def backward(ctx, g_lp, g_lse, g_ent):
+        hidden, head, targets, lse, ent = ctx.saved_tensors
+        transpose_head, dw_chunks = ctx.cfg
+        c0, g_lp, g_ent = ref.logits_grad_coef(lse, ent, g_lp, g_lse, g_ent)
+        dh, dw = fused_logprob_bwd(
+            hidden, head, targets, lse, c0, g_lp, g_ent,
+            transpose_head=transpose_head, dw_chunks=dw_chunks,
+            want_dh=ctx.needs_input_grad[0], want_dw=ctx.needs_input_grad[1])
+        return dh, dw, None, None, None
+
+
+def fused_logprob(hidden, head, targets, *, transpose_head: bool = False,
+                  dw_chunks: int = 1):
+    """Blockwise linear-cross-entropy over the lm head. hidden: (N, D);
+    head: (D, V), or (V, D) with transpose_head (the tied embedding, read in
+    place); targets: (N,) integer ids. Returns (logprob, lse, entropy),
+    each (N,) float32. Differentiable w.r.t. hidden and head: the backward
+    recomputes each vocab chunk's softmax from the saved lse, so neither
+    the (N, V) logits nor their gradient is ever stored whole. dw_chunks > 1
+    sums the head gradient as per-row-range float32 partials."""
+    if hidden.device.type == "cpu":
+        return ref.fused_logprob_blocked(hidden, head, targets,
+                                         transpose_head=transpose_head,
+                                         dw_chunks=dw_chunks)
+    if hidden.device.type != "cuda":
+        raise ValueError(f"fused_logprob: unsupported device {hidden.device}")
+    return _FusedLogprob.apply(hidden, head, targets, bool(transpose_head),
+                               int(dw_chunks))

@@ -1,10 +1,13 @@
 """GQA attention layers of the dense decoder: full-sequence forward,
 one-token decode against the slot cache, and chunked prefill.
 
-Attention itself always goes through `kernels.ops`, which runs the CUDA
-kernels on the card and their plain versions on the CPU; the kernels take
-any shape the model produces, so there is no shape gate as in the JAX
-package. Cache writes update the engine's cache tensors in place.
+Inference attention goes through `kernels.ops`, which runs the CUDA kernels
+on the card and their plain versions on the CPU; the kernels take any shape
+the model produces, so there is no shape gate as in the JAX package.
+Training on packed batches (`segment_ids` given) takes the plain,
+differentiable `blocked_causal_attention`, as in the JAX package, whose
+flash kernel has no backward either. Cache writes update the engine's cache
+tensors in place.
 """
 from __future__ import annotations
 
@@ -16,6 +19,94 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, rms_norm
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# blocked (flash-style) causal attention: the plain training path
+# ---------------------------------------------------------------------------
+
+def _mask_fill(s, mask):
+    return torch.where(mask, s, torch.full_like(s, NEG_INF))
+
+
+def blocked_causal_attention(q, k, v, *, scale: float, segment_ids=None,
+                             window: int = 0, q_block: int = 512,
+                             kv_block: int = 512):
+    """q: (B,S,H,Dk); k, v: (B,S,KV,Dk/Dv), GQA via H = KV * rep. Online
+    softmax over key blocks in float32, the JAX package's
+    `blocked_causal_attention` (`models/attention.py:68-137`), with the same
+    shape rule for taking the single-block path. `segment_ids` (B,S) keeps
+    packed sequences apart; `window > 0` adds j > i - window. Differentiable
+    by autograd."""
+    B, S, H, Dk = q.shape
+    KV, Dv = k.shape[2], v.shape[-1]
+    rep = H // KV
+    if S % q_block or S % kv_block or S <= q_block:
+        return _naive_causal_attention(q, k, v, scale=scale,
+                                       segment_ids=segment_ids, window=window)
+    nq, nk = S // q_block, S // kv_block
+    dev = q.device
+    qr = q.float().reshape(B, nq, q_block, KV, rep, Dk)
+    kr = k.float().reshape(B, nk, kv_block, KV, Dk)
+    vr = v.reshape(B, nk, kv_block, KV, Dv)
+    pos = torch.arange(S, device=dev)
+    q_pos, k_pos = pos.reshape(nq, q_block), pos.reshape(nk, kv_block)
+    outs = []
+    for qi in range(nq):
+        qp = q_pos[qi]
+        m = torch.full((B, KV, rep, q_block), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, KV, rep, q_block, Dv), dtype=torch.float32,
+                          device=dev)
+        for ki in range(nk):
+            kp = k_pos[ki]
+            s = torch.einsum("bqgrd,bkgd->bgrqk", qr[:, qi], kr[:, ki]) * scale
+            mask = qp[:, None] >= kp[None, :]
+            if window:
+                mask = mask & (qp[:, None] - kp[None, :] < window)
+            mask = mask[None, None, None]
+            if segment_ids is not None:
+                sq = segment_ids[:, qi * q_block:(qi + 1) * q_block]
+                sk = segment_ids[:, ki * kv_block:(ki + 1) * kv_block]
+                mask = mask & (sq[:, None, :, None]
+                               == sk[:, None, None, :])[:, :, None]
+            s = _mask_fill(s, mask)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bgrqk,bkgd->bgrqd", p.to(v.dtype).float(), vr[:, ki].float())
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.stack(outs, dim=1)                   # (B,nq,KV,rep,qb,Dv)
+    out = out.permute(0, 1, 4, 2, 3, 5).reshape(B, S, H, Dv)
+    return out.to(q.dtype)
+
+
+def _naive_causal_attention(q, k, v, *, scale: float, segment_ids=None,
+                            window: int = 0):
+    """Full (S, S) scores: the JAX package's `_naive_causal_attention`."""
+    B, S, H, Dk = q.shape
+    KV = k.shape[2]
+    rep = H // KV
+    qr = q.float().reshape(B, S, KV, rep, Dk)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qr, k.float()) * scale
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(S, device=q.device)[None, :]
+    mask = i >= j
+    if window:
+        mask = mask & ((i - j) < window)
+    mask = mask[None, None, None]
+    if segment_ids is not None:
+        mask = mask & (segment_ids[:, None, None, :, None]
+                       == segment_ids[:, None, None, None, :])
+    p = torch.softmax(_mask_fill(s, mask), dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p.to(v.dtype).float(), v.float())
+    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
 def _project(p: Dict[str, torch.Tensor], x: torch.Tensor, positions,
@@ -46,17 +137,24 @@ def _scale(cfg: ModelConfig) -> float:
     return 1.0 / math.sqrt(cfg.d_head)
 
 
-def gqa_forward(p, x, positions, cfg: ModelConfig, return_kv: bool = False):
+def gqa_forward(p, x, positions, cfg: ModelConfig, segment_ids=None,
+                return_kv: bool = False):
     """Full-sequence causal GQA (sliding-window masked when the config's
-    variant says so). x: (B,S,d). Returns y, or (y, (k, v)) with k, v
-    (B,S,KV,Dh)."""
+    variant says so). x: (B,S,d); segment_ids: (B,S) of a packed batch, or
+    None. The flash kernel takes the unsegmented case, as the JAX gate
+    `_use_flash_kernel` does; packed batches take the plain blocked path.
+    Returns y, or (y, (k, v)) with k, v (B,S,KV,Dh)."""
     q, k, v = _project(p, x, positions, cfg)
     window = (cfg.sliding_window
               if cfg.attention_variant == "sliding_window" else 0)
-    out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), scale=_scale(cfg),
-                               window=window)
-    y = _out_proj(p, out.transpose(1, 2))
+    if segment_ids is None:
+        out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), scale=_scale(cfg),
+                                   window=window).transpose(1, 2)
+    else:
+        out = blocked_causal_attention(q, k, v, scale=_scale(cfg),
+                                       segment_ids=segment_ids, window=window)
+    y = _out_proj(p, out)
     if return_kv:
         return y, (k, v)
     return y

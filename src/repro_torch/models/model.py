@@ -5,7 +5,10 @@ Parameters are a nested dict in the JAX package's layout (stacked `(L, ...)`
 leaves under `groups[0]`), so a tree converts leaf for leaf between the two
 packages (`repro_torch.convert`). The JAX package scans over layers; here a
 Python loop walks per-layer views of the stacked leaves. Decode and prefill
-update the cache tensors in place.
+update the cache tensors in place. The full-sequence forward is also the
+training forward: packed batches (`segment_ids`), the fused lm-head loss
+(`loss_targets` with `cfg.fused_loss`) and activation checkpointing
+(`cfg.remat`).
 """
 from __future__ import annotations
 
@@ -13,9 +16,12 @@ import math
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import init_leaf, rms_norm, swiglu
 
@@ -82,11 +88,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     return build(param_shapes(cfg))
 
 
-def layer_view(tree, l: int):
-    """Layer `l` of a stacked `(L, ...)` subtree, as views."""
+def layer_views(tree, n_layers: int) -> List[Any]:
+    """All layers of a stacked `(L, ...)` subtree, as views made by one
+    `torch.unbind` per leaf. Differentiated, each leaf then gets one
+    stacked gradient, where `tree[l]` per layer would allocate a whole
+    `(L, ...)` gradient for every layer."""
     if isinstance(tree, dict):
-        return {k: layer_view(v, l) for k, v in tree.items()}
-    return tree[l]
+        subs = {k: layer_views(v, n_layers) for k, v in tree.items()}
+        return [{k: sub[l] for k, sub in subs.items()}
+                for l in range(n_layers)]
+    return list(torch.unbind(tree))
 
 
 def _head(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -99,11 +110,44 @@ def _ffn(cfg: ModelConfig, h, lp):
     return h + swiglu(x, f["gate"], f["up"], f["down"])
 
 
-def _outputs(params: Params, cfg: ModelConfig, h, logits: bool):
-    """Final norm, then logits and values as the config asks."""
+def _fused_head_stats(params: Params, cfg: ModelConfig, hs, tgt):
+    """The fused lm-head call: hs (N,D) rows against the head, targets (N,).
+    Returns (lp, lse, ent). Tied embeddings pass `params["embed"]` in its
+    own (V,D) layout (`transpose_head`), so no transposed copy is made."""
+    if cfg.tie_embeddings:
+        return kops.fused_logprob(hs, params["embed"], tgt,
+                                  transpose_head=True)
+    return kops.fused_logprob(hs, params["lm_head"], tgt,
+                              transpose_head=False)
+
+
+def _fused_loss_stats(params: Params, cfg: ModelConfig, h, loss_targets):
+    """Per-token stats of the sampled tokens without (B,S,V) logits. h:
+    (B,S,D) after the final norm; loss_targets: (B,S) with targets[t] =
+    tokens[t+1]. Returns token_logprobs, lse and entropy, each (B,S)
+    float32 and shifted so that entry t describes the distribution that
+    scored token t (entry 0 is a zero pad), as `algo.token_logprobs`
+    aligns them."""
+    B, S, D = h.shape
+    lp, lse, ent = _fused_head_stats(params, cfg, h.reshape(B * S, D),
+                                     loss_targets.reshape(B * S))
+
+    def shift(x):
+        return F.pad(x.reshape(B, S)[:, :-1], (1, 0))
+
+    return {"token_logprobs": shift(lp), "lse": shift(lse),
+            "entropy": shift(ent)}
+
+
+def _outputs(params: Params, cfg: ModelConfig, h, logits: bool,
+             loss_targets=None):
+    """Final norm, then logits (or the fused loss stats) and values as the
+    config asks."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     out: Dict[str, Any] = {}
-    if logits:
+    if cfg.fused_loss and loss_targets is not None:
+        out.update(_fused_loss_stats(params, cfg, h, loss_targets))
+    elif logits:
         out["logits"] = h @ _head(params, cfg)
     if cfg.use_value_head:
         out["values"] = (h.float() @ params["value_head"])[..., 0]
@@ -114,26 +158,43 @@ def _outputs(params: Params, cfg: ModelConfig, h, logits: bool):
 # forward (full sequence)
 # ---------------------------------------------------------------------------
 
+def _layer(cfg: ModelConfig, h, lp, positions, segment_ids):
+    x = rms_norm(h, lp["norm1"], cfg.norm_eps)
+    a, (k, v) = attn.gqa_forward(lp["attn"], x, positions, cfg, segment_ids,
+                                 return_kv=True)
+    return _ffn(cfg, h + a, lp), k, v
+
+
 def forward(params: Params, tokens, positions, cfg: ModelConfig, *,
-            return_cache: bool = False, logits: bool = True):
-    """tokens, positions: (B,S) integer tensors. Returns dict(logits?,
-    values?, cache?). `logits=False` skips the (B,S,V) head product: eager
+            segment_ids=None, loss_targets=None, return_cache: bool = False,
+            logits: bool = True):
+    """tokens, positions: (B,S) integer tensors; segment_ids: (B,S) of a
+    packed batch, or None. Returns dict(logits?, values?, cache?).
+
+    loss_targets: optional (B,S) next-token targets (position t holds
+    tokens[t+1]; the last column is dead). With `cfg.fused_loss` the head
+    product and the cross-entropy fuse into `kernels.ops.fused_logprob`:
+    no logits are made, and the output carries `token_logprobs`, `lse` and
+    `entropy` instead. `logits=False` skips the (B,S,V) head product: eager
     PyTorch would compute it even when only the cache is wanted (the KV
-    recompute), where XLA dropped it as dead code."""
-    gp = params["groups"][0]
+    recompute), where XLA dropped it as dead code. With `cfg.remat` and
+    grad mode on, each layer keeps only its input and recomputes the rest
+    in the backward pass."""
     h = params["embed"][tokens]
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
-    for l in range(cfg.n_layers):
-        lp = layer_view(gp, l)
-        x = rms_norm(h, lp["norm1"], cfg.norm_eps)
-        a, (k, v) = attn.gqa_forward(lp["attn"], x, positions, cfg,
-                                     return_kv=True)
-        h = _ffn(cfg, h + a, lp)
+    remat = cfg.remat and torch.is_grad_enabled() and not return_cache
+    for lp in layer_views(params["groups"][0], cfg.n_layers):
+        if remat:
+            h = checkpoint(lambda hh, lp=lp: _layer(cfg, hh, lp, positions,
+                                                    segment_ids)[0],
+                           h, use_reentrant=False)
+            continue
+        h, k, v = _layer(cfg, h, lp, positions, segment_ids)
         if return_cache:
             ks.append(k)
             vs.append(v)
-    out = _outputs(params, cfg, h, logits)
+    out = _outputs(params, cfg, h, logits, loss_targets)
     if return_cache:
         out["cache"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
     return out
@@ -152,10 +213,8 @@ def decode_step(params: Params, tokens, positions, cache, cache_index,
     passes ring=False and masks by count."""
     if ring is None:
         ring = cfg.attention_variant == "sliding_window"
-    gp = params["groups"][0]
     h = params["embed"][tokens]
-    for l in range(cfg.n_layers):
-        lp = layer_view(gp, l)
+    for l, lp in enumerate(layer_views(params["groups"][0], cfg.n_layers)):
         x = rms_norm(h, lp["norm1"], cfg.norm_eps)
         a = attn.gqa_decode(lp["attn"], x, positions, cache["k"][l],
                             cache["v"][l], cache_index, cfg, ring)
@@ -190,10 +249,8 @@ def prefill_chunk(params: Params, tokens, prompt_len, offset: int, admit_mask,
                  )[None].expand(B, chunk)
     pos_valid = positions < (prompt_len[:, None] - 1)            # (B,C)
     kv_write_mask = admit_mask[:, None] & pos_valid              # (B,C)
-    gp = params["groups"][0]
     h = params["embed"][toks]
-    for l in range(cfg.n_layers):
-        lp = layer_view(gp, l)
+    for l, lp in enumerate(layer_views(params["groups"][0], cfg.n_layers)):
         x = rms_norm(h, lp["norm1"], cfg.norm_eps)
         a = attn.gqa_prefill_chunk(lp["attn"], x, positions, cache["k"][l],
                                    cache["v"][l], offset, kv_write_mask, cfg)

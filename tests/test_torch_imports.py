@@ -10,8 +10,11 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.convert import (params_from_numpy, params_to_numpy,
+                                 train_state_from_numpy, train_state_to_numpy)
+from repro_torch.core.preprocess import PreprocessConfig, Preprocessor
 from repro_torch.core.rollout import EngineConfig, GenerationEngine
+from repro_torch.core.trainer import Trainer, init_train_state
 from repro_torch.models import model as TM
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -70,6 +73,18 @@ def test_entry_points_default_to_the_card(monkeypatch):
         TM.init_params(cfg, seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy(params_to_numpy(params), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Preprocessor(cfg, params, PreprocessConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(params)
+    state = init_train_state(params, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_state_from_numpy(train_state_to_numpy(state), cfg)
+    assert Trainer(cfg, params, device="cpu").device.type == "cpu"
+    assert Preprocessor(cfg, params, PreprocessConfig(),
+                        device="cpu").device.type == "cpu"
     eng = GenerationEngine(cfg, params, EngineConfig(), lambda: None,
                            device="cpu")
     assert eng.device.type == "cpu"

@@ -203,7 +203,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
         rtol=0, atol=0)
     assert ops.launches == before
     assert set(ops.launches) == {"flash_decode", "prefill_attention",
-                                 "flash_attention"}
+                                 "flash_attention", "fused_logprob_fwd",
+                                 "fused_logprob_bwd"}
 
 
 def test_unsupported_device_raises():
