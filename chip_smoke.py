@@ -4,13 +4,15 @@
 Run from the repository root:
 
     python3 chip_smoke.py                  # every phase, as a release check
+    python3 chip_smoke.py --only build,kernels,pipeline
     python3 chip_smoke.py --only build,kernels,train --train-layers 2
     python3 chip_smoke.py --only build,kernels,serve --layers 2
 
 Phases, one JSON line each, every line tagged with the GPU's name and power
 limit (`nvidia-smi --query-gpu=name,power.limit`):
 
-1. env: versions of Python, torch, CUDA, nvcc and the driver.
+1. env: versions of Python, torch, CUDA, nvcc and the driver, and the
+   bound of each TPU kernel still to port (`ssd_scan`) from its shapes.
 2. build: nvcc builds every kernel from `src/repro_torch/kernels/csrc/`
    into `build/repro_torch/` (seconds, and ptxas's register and spill
    report).
@@ -20,6 +22,13 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
    ragged lengths, a ring cache wrapped twice, offset 0, S not a multiple
    of 128, Dk != Dv), max abs error against 2e-5 (float32) or 2e-2
    (bfloat16), with `scaled_dot_product_attention` as the library call.
+   The paged decode at the pipeline phase's shapes (granite-3-2b heads,
+   CL 512, page 64) and at llama3-8b's (B=16, CL=1024, lengths 773-1017,
+   pages of 16 and 64) on a shuffled block table over a pool larger than
+   the rows need, unallocated blocks on the trash page and two rows
+   sharing pages; also held bit for bit against `flash_decode` on the same
+   state gathered into the slot layout, with an index_select gather then
+   `scaled_dot_product_attention` as the composite yardstick.
    The fused lm-head loss (forward, and the backward's `dh` and `dW`
    from one launch) against its vocab-blocked
    twin at granite-3-2b's head (N=4096 and the Preprocessor's N=8192,
@@ -49,6 +58,19 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
    stamps after the swap and the launch counts, then compares one loss and
    gradient on A through the kernels with the same through the plain
    fused loss.
+6. pipeline: this slice's path, `PipelineRL` on one paged engine at
+   granite-3-2b's full width and depth in bfloat16 (fused loss, remat,
+   random weights from seed 0): `EngineConfig(n_slots=16, max_len=512,
+   prefill_chunk=64, cache="paged", page_size=64, paged_attention=
+   "kernel", prefix_sharing=True)`, the Preprocessor (kl_coef 0.05), the
+   Trainer (lr 1e-3), a streamed broadcast in 8 chunks and the group
+   baseline, for 3 optimizer steps. Prompts of 256-384 random token ids
+   come in GRPO groups: each is yielded 8 times in a row. It checks the
+   steps, the streamed swaps, the stamps, that every refill forked its
+   identical prompts (7 forks per prefill for whole groups), the block
+   tables, that `reset_slots` returns every page, the launches and the
+   losses; then it runs 16 prompts for 32 decode steps through a paged
+   engine (the paged kernel) and a slot engine and holds them bit for bit.
 
 Then it prints the `{"kernels": [...]}` summary, the GPU's name and power
 limit as nvidia-smi gives them, and, last, `{"ok": true, "device": {...}}`.
@@ -74,25 +96,33 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("env", "build", "kernels", "serve", "train")
+PHASES = ("env", "build", "kernels", "serve", "train", "pipeline")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores,
 # float32 outside the tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
-# name: (source, the TPU kernel it replaces, the label of its main-path case)
+# name: (source, the TPU kernel it replaces, the label of its main-path
+# case, the phase that drives its main path)
 KERNELS = {
     "flash_decode": ("src/repro_torch/kernels/csrc/decode_attention.cu",
-                     "src/repro/kernels/decode_attention.py:78", "serve"),
+                     "src/repro/kernels/decode_attention.py:78", "serve",
+                     "serve"),
+    "flash_decode_paged": ("src/repro_torch/kernels/csrc/paged_decode.cu",
+                           "src/repro/kernels/paged_cache.py:298",
+                           "pipeline", "pipeline"),
     "prefill_attention": ("src/repro_torch/kernels/csrc/prefill_attention.cu",
                           "src/repro/kernels/prefill_attention.py:103",
-                          "serve"),
+                          "serve", "serve"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention.py:75", "serve"),
+                        "src/repro/kernels/flash_attention.py:75", "serve",
+                        "serve"),
     "fused_logprob_fwd": ("src/repro_torch/kernels/csrc/fused_logprob.cu",
-                          "src/repro/kernels/fused_logprob.py:256", "train"),
+                          "src/repro/kernels/fused_logprob.py:256", "train",
+                          "train"),
     "fused_logprob_bwd": ("src/repro_torch/kernels/csrc/fused_logprob.cu",
-                          "src/repro/kernels/fused_logprob.py:284", "train"),
+                          "src/repro/kernels/fused_logprob.py:284", "train",
+                          "train"),
 }
 N_FINISHED = 24
 UPDATE_STEPS = {"atomic": 50, "streamed": 100, "recompute_kv": 150}
@@ -109,13 +139,38 @@ def nvidia_smi(query: str) -> str:
     return out.strip().splitlines()[0].strip()
 
 
+_CYCLES_PER_MS = []
+
+
+def _cycles_per_ms() -> float:
+    """Clock cycles of `torch.cuda._sleep` per millisecond, timed once."""
+    if not _CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        end.synchronize()
+        _CYCLES_PER_MS.append(10 ** 7 / start.elapsed_time(end))
+    return _CYCLES_PER_MS[0]
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean device time of `fn` over `iters` back-to-back calls, after one
-    warm-up call, from CUDA events."""
+    warm-up call, from CUDA events. The calls are queued behind a device
+    sleep longer than twice their host cost, so the card runs them back to
+    back and the events time the device, not the rate at which the host
+    issues them (which bounds a call shorter than its wrapper's host
+    work)."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * iters * host_ms * _cycles_per_ms()) + 1000)
     start.record()
     for _ in range(iters):
         fn()
@@ -140,7 +195,27 @@ def phase_env(gpu: str) -> None:
           "nvcc": nvcc[-1], "driver": nvidia_smi("driver_version"),
           "triton": triton, "device_count": torch.cuda.device_count(),
           "allow_tf32": [torch.backends.cuda.matmul.allow_tf32,
-                         torch.backends.cudnn.allow_tf32]})
+                         torch.backends.cudnn.allow_tf32],
+          "still_to_port": unported_bounds()})
+
+
+def unported_bounds() -> list:
+    """The bound of each TPU kernel still to port, from its shapes alone:
+    `ssd_scan` (src/repro/kernels/ssd_scan.py:70) at mamba2-2.7b's widths
+    (80 heads of 64, one group, state 128, chunk 64) over a train-shaped
+    batch of 4 x 1024 tokens, bf16 in, the float32 state out. Bytes: x, dt,
+    B, C read once, y and the final state written once. Operations: per
+    (row, head, chunk) the four chunk products C.B^T, scores.(dt x),
+    C.state and B^T.(decay dt x)."""
+    b, l, h, p, g, n, q = 4, 1024, 80, 64, 1, 128, 64
+    nbytes = 2 * (2 * b * l * h * p + b * l * h + 2 * b * l * g * n) \
+        + 4 * (b * h * n * p + h)
+    flops = b * h * (l // q) * 2 * (q * q * n + q * q * p + 2 * q * n * p)
+    bound = _bound(nbytes, flops, torch.bfloat16)
+    return [{"name": "ssd_scan", "replaces": "src/repro/kernels/ssd_scan.py:70",
+             "shape": dict(b=b, l=l, h=h, p=p, g=g, n=n, chunk=q),
+             "bytes": nbytes, "flops": flops, "bound_ms": bound[0],
+             "bound_by": bound[1]}]
 
 
 def _nvcc() -> str:
@@ -197,6 +272,69 @@ def decode_case(B, H, KV, CL, D, lengths, dtype, seed):
         plain=lambda: ref.flash_decode_ref(q, kc, vc, lens, scale=scale),
         library=lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, scale=scale, enable_gqa=True),
+        bound=_bound(nbytes, 4.0 * n * H * D, dtype))
+
+
+PAGED_YARDSTICK = ("composite: index_select gather of the rows' pages, then "
+                   "scaled_dot_product_attention with enable_gqa")
+
+
+def paged_case(B, H, KV, CL, D, PS, lengths, dtype, seed):
+    """flash_decode_paged on a shuffled block table over a pool larger than
+    the rows need (a layer slice of a two-layer pool, read in place),
+    unallocated blocks on the trash page (filled with large values no read
+    may reach), rows 0 and 1 sharing their first pages. Also held bit for
+    bit against flash_decode on the same state gathered into the slot
+    layout."""
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    NB = CL // PS
+    need = [-(-int(n) // PS) for n in lengths]
+    n_pages = 1 + sum(need) + 2 * NB
+    free = list(rng.permutation(np.arange(1, n_pages)))
+    bt = np.zeros((B, NB), np.int32)
+    for b in range(B):
+        for j in range(need[b]):
+            bt[b, j] = free.pop()
+    shared = min(need[0], need[1]) // 2
+    bt[1, :shared] = bt[0, :shared]
+    pools = [_randn(gen, (2, n_pages, PS, KV, D), dtype) for _ in range(2)]
+    for pool in pools:
+        pool[:, 0] = 100.0                      # the trash page
+    kp, vp = pools[0][1], pools[1][1]
+    q = _randn(gen, (B, H, D), dtype)
+    bt_t = torch.from_numpy(bt).cuda()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    scale = D ** -0.5
+    flat = bt_t.flatten().long()
+
+    def gathered(pool):
+        return pool.index_select(0, flat).view(B, NB * PS, KV, D)
+
+    mask = (torch.arange(CL, device="cuda")[None] < lens[:, None])[:, None, None]
+    qs = q[:, :, None]
+    # K/V bytes: each valid (page, offset) once, shared pages once
+    valid = {(int(bt[b, p // PS]), p % PS) for b in range(B)
+             for p in range(int(lengths[b]))}
+    n = float(sum(lengths))
+    elt = q.element_size()
+    nbytes = ((2 * q.numel() + 2 * len(valid) * KV * D) * elt
+              + 4 * (B * NB + B))
+    return dict(
+        shape=dict(B=B, H=H, KV=KV, CL=CL, D=D, page_size=PS,
+                   n_pages=n_pages, shared_blocks=shared,
+                   lengths=list(map(int, lengths))),
+        kernel=lambda: ops.flash_decode_paged(q, kp, vp, bt_t, lens,
+                                              scale=scale),
+        plain=lambda: ref.flash_decode_paged_ref(q, kp, vp, bt_t, lens,
+                                                 scale=scale),
+        bitwise=lambda: ops.flash_decode(q, gathered(kp), gathered(vp), lens,
+                                         scale=scale),
+        library=None,
+        yardstick=lambda: F.scaled_dot_product_attention(
+            qs, gathered(kp).transpose(1, 2), gathered(vp).transpose(1, 2),
+            attn_mask=mask, scale=scale, enable_gqa=True),
         bound=_bound(nbytes, 4.0 * n * H * D, dtype))
 
 
@@ -269,9 +407,24 @@ def kernel_cases(dtype):
     awkward ones. The `serve` label marks the shapes of the serving path."""
     rng = np.random.default_rng(0)
     serve_lengths = rng.integers(769, 1025, 16)   # prompts 768-1000, + decode
+    paged_lengths = rng.integers(773, 1018, 16)
+    paged_lengths[paged_lengths % 16 == 0] += 1   # no length on a page edge
+    # the pipeline phase's decode: granite-3-2b heads, 16 slots, max_len 512,
+    # prompts 256-384 plus what was sampled
+    pipe_lengths = rng.integers(257, 512, 16)
     return [
         ("flash_decode", "serve",
          lambda: decode_case(16, 32, 8, 1024, 128, serve_lengths, dtype, 1)),
+        ("flash_decode_paged", "pipeline",
+         lambda: paged_case(16, 32, 8, 512, 64, 64, pipe_lengths, dtype, 14)),
+        ("flash_decode_paged", "llama-p16",
+         lambda: paged_case(16, 32, 8, 1024, 128, 16, paged_lengths, dtype,
+                            15)),
+        ("flash_decode_paged", "llama-p64",
+         lambda: paged_case(16, 32, 8, 1024, 128, 64, paged_lengths, dtype,
+                            16)),
+        ("flash_decode_paged", "d32-p8-mqa",
+         lambda: paged_case(3, 4, 1, 96, 32, 8, [1, 37, 96], dtype, 17)),
         ("flash_decode", "d64-ragged",
          lambda: decode_case(3, 8, 2, 320, 64, [1, 77, 320], dtype, 2)),
         ("flash_decode", "d32-mha-full-ring",
@@ -304,7 +457,6 @@ def kernel_cases(dtype):
 # the logits gradient over V in another order (f32), and in bfloat16 both
 # round the same float32 sums once (a flipped last bit is 2^-8 relative).
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-FUSED = ("fused_logprob_fwd", "fused_logprob_bwd")
 YARDSTICK = ("unfused composite: h @ W, then logsumexp, gather and entropy "
              "over the (N, V) logits (autograd backward for dh, dW)")
 
@@ -441,17 +593,28 @@ def phase_kernels(gpu: str) -> list:
             torch.cuda.synchronize()
             err = float((out.float() - exp.float()).abs().max())
             ok = bool(torch.isfinite(out).all()) and err <= TOL[dtype]
-            iters = 20 if label == "serve" else 5
+            iters = 20 if label in ("serve", "pipeline") else 5
             row = dict(name=name, label=label, shape=case["shape"],
                        dtype=str(dtype).replace("torch.", ""), max_err=err,
                        tol=TOL[dtype], ok=ok,
                        kernel_ms=cuda_ms(case["kernel"], iters),
                        plain_ms=cuda_ms(case["plain"], max(iters // 4, 2)),
-                       library_ms=cuda_ms(case["library"], iters),
+                       library_ms=(cuda_ms(case["library"], iters)
+                                   if case["library"] else None),
                        bound_ms=case["bound"][0], bound_by=case["bound"][1])
+            if "bitwise" in case:
+                # the paged kernel against flash_decode on the gathered view
+                same = bool(torch.equal(out, case["bitwise"]()))
+                row.update(bitwise_vs_flash_decode=same)
+                ok = ok and same
+                row["ok"] = ok
+            if "yardstick" in case:
+                row.update(yardstick_ms=cuda_ms(case["yardstick"], iters),
+                           yardstick=PAGED_YARDSTICK)
             results.append(row)
             if not ok:
-                failures.append(f"{name}/{label}/{row['dtype']}: err {err}")
+                failures.append(f"{name}/{label}/{row['dtype']}: err {err}"
+                                f"{row.get('bitwise_vs_flash_decode', '')}")
             del case, out, exp
             torch.cuda.empty_cache()
     emit({"phase": "kernels", "gpu": gpu, "kernels": results})
@@ -634,8 +797,8 @@ def phase_serve(gpu: str, n_layers: int, device="cuda") -> dict:
     if eng.version != 3 or eng.wstreams_torn or eng.wchunks_rejected:
         bad.append(f"engine version {eng.version}, torn {eng.wstreams_torn}, "
                    f"rejected {eng.wchunks_rejected}")
-    for name in KERNELS:
-        if name not in FUSED and launches[name] <= 0:
+    for name, spec in KERNELS.items():
+        if spec[3] == "serve" and launches[name] <= 0:
             bad.append(f"{name} was never launched on the serving path")
 
     # --- one decode step and one prefill chunk again through the plain
@@ -982,19 +1145,273 @@ def phase_train(gpu: str, n_layers: int, device="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the PipelineRL loop on paged engines
+# ---------------------------------------------------------------------------
 
-def summary(kernels: list, serve, train, gpu: str) -> list:
+PIPE_GROUP = 8            # GRPO group: each prompt is yielded 8 times
+PIPE_CHECK_STEPS = 32     # decode steps of the paged-against-slots check
+# the broadcast interconnect of the simulated clock moves one publication
+# in this many decode steps of the phase's batch (the Appendix-A default
+# is set for the tiny config's kilobytes, not granite's gigabytes)
+PIPE_BCAST_STEPS = 8
+
+
+def _paged_against_slots(cfg, params, dev, n_prompts: int) -> dict:
+    """The same 16 prompts through a paged engine (page_size 64, the paged
+    kernel, no prefix sharing) and a slot engine at one seed, for
+    PIPE_CHECK_STEPS decode steps: tokens, behavior logprobs and version
+    stamps must agree bit for bit."""
+    import dataclasses
+
+    from repro_torch import EngineConfig, GenerationEngine
+    from repro_torch.data.math_task import Problem
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(3, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(256, 385, n_prompts)]
+    ec = EngineConfig(n_slots=n_prompts, max_len=512, prefill_chunk=64,
+                      temperature=1.0)
+    out = {}
+    for name, e in (("slots", ec),
+                    ("paged", dataclasses.replace(
+                        ec, cache="paged", page_size=64,
+                        paged_attention="kernel", prefix_sharing=False))):
+        it = iter([Problem(list(p), 0) for p in prompts])
+        eng = GenerationEngine(cfg, params, e, lambda: next(it, None),
+                               seed=7, device=dev)
+        eng.refill()
+        times = []
+        for _ in range(PIPE_CHECK_STEPS):
+            t0 = time.perf_counter()
+            eng.step()                  # ends in the `finished` readback
+            times.append(time.perf_counter() - t0)
+        out[name] = (eng.state["tokens"].cpu(), eng.state["lp"].cpu(),
+                     eng.ver_buf.copy(), statistics.median(times[1:]) * 1e3)
+        del eng
+    (tS, lS, vS, mS), (tP, lP, vP, mP) = out["slots"], out["paged"]
+    return {"prompts": n_prompts, "decode_steps": PIPE_CHECK_STEPS,
+            "decode_step_ms_median": {"slots": mS, "paged": mP},
+            "tokens_equal": bool(torch.equal(tS, tP)),
+            "logprobs_bitwise": bool(torch.equal(lS, lP)),
+            "logprobs_max_diff": float((lS - lP).abs().max()),
+            "stamps_equal": bool((vS == vP).all())}
+
+
+def phase_pipeline(gpu: str, n_layers: int, device="cuda") -> dict:
+    """This slice's path on `device` (the card; a CPU run rehearses the
+    phase's logic at a reduced config and measures nothing): PipelineRL on
+    one paged engine with prefix-shared GRPO groups, the Preprocessor, the
+    trainer with the group baseline, and the streamed broadcast."""
+    import dataclasses
+
+    from repro_torch import (AdamConfig, EngineConfig, HardwareModel,
+                             PipelineConfig, PipelineRL, PreprocessConfig,
+                             Preprocessor, RLConfig, Trainer, get_config)
+    from repro_torch.core.weights import tree_bytes
+    from repro_torch.data.math_task import MathTask, Problem
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config("granite-3-2b"), fused_loss=True,
+                              remat=True)
+    if n_layers != cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    dev = torch.device(device)
+    ec = EngineConfig(n_slots=16, max_len=512, prefill_chunk=64,
+                      cache="paged", page_size=64, paged_attention="kernel",
+                      prefix_sharing=True, temperature=1.0)
+    pc = PipelineConfig(batch_size=16, n_opt_steps=3, pack_rows=4,
+                        pack_seq=1024, n_engines=1, broadcast="streamed",
+                        broadcast_chunks=8, group_baseline=True)
+    rng = np.random.default_rng(0)
+    group = {"left": 0, "prob": None}
+
+    def source():
+        if group["left"] == 0:
+            n = int(rng.integers(256, 385))
+            group["prob"] = Problem(rng.integers(3, cfg.vocab_size,
+                                                 n).tolist(), 0)
+            group["left"] = PIPE_GROUP
+        group["left"] -= 1
+        return group["prob"]
+
+    params = M.init_params(cfg, seed=0, device=dev)
+    trainer = Trainer(cfg, params, rl=RLConfig(), adam=AdamConfig(lr=1e-3),
+                      device=dev)
+    pre = Preprocessor(cfg, params, PreprocessConfig(kl_coef=0.05,
+                                                     max_len=ec.max_len),
+                       device=dev)
+    base = HardwareModel()
+    per_chip = ec.n_slots / (pc.n_chips - pc.train_chips)
+    hw = dataclasses.replace(base, bcast_bytes_per_flash=tree_bytes(params)
+                             / (PIPE_BCAST_STEPS * base.step_cost(per_chip)))
+    p = PipelineRL(cfg, params, MathTask(), ec, pc, hw=hw, trainer=trainer,
+                   preprocessor=pre, prompt_source=source, device=dev)
+    eng = p.engine
+
+    # instrument the engine and the trainer (timing and counters only)
+    step_s, live_pages, refills, step_wall = [], [], [], []
+    raw_step, raw_refill, raw_train = eng.step, eng.refill, trainer.step
+
+    def timed_step(*a, **k):
+        t0 = time.perf_counter()
+        done = raw_step(*a, **k)
+        step_s.append(time.perf_counter() - t0)
+        live_pages.append(eng.allocator.live_pages)
+        return done
+
+    def counted_refill(*a, **k):
+        pre_, fork_ = eng.prompt_prefills, eng.prefix_forks
+        rows = np.where(~eng._host_active)[0]
+        n = raw_refill(*a, **k)
+        if n:
+            new = [tuple(eng.problems[s].prompt_ids) for s in rows
+                   if eng._host_active[s]]
+            sizes = [new.count(key) for key in set(new)]
+            refills.append({"admitted": n, "distinct": len(sizes),
+                            "whole_groups": all(c == PIPE_GROUP
+                                                for c in sizes),
+                            "prefills": eng.prompt_prefills - pre_,
+                            "forks": eng.prefix_forks - fork_})
+        return n
+
+    def timed_train(*a, **k):
+        _sync(dev)
+        t0 = time.perf_counter()
+        m = raw_train(*a, **k)
+        _sync(dev)
+        step_wall.append({"train_ms": (time.perf_counter() - t0) * 1e3,
+                          "at_s": time.perf_counter() - t_start})
+        return m
+
+    actor = p.actors[0]
+    seen, raw_deliver = [], actor.deliver
+
+    def kept_deliver(rollouts, t):
+        seen.extend(rollouts)
+        raw_deliver(rollouts, t)
+
+    eng.step, eng.refill, trainer.step = timed_step, counted_refill, \
+        timed_train
+    actor.deliver = kept_deliver
+    ops.reset_launches()
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t_start = time.perf_counter()
+    log = p.run()
+    _sync(dev)
+    run_s = time.perf_counter() - t_start
+    launches = dict(ops.launches)
+    tokens = eng.tokens_generated
+    peak_gb = (torch.cuda.max_memory_allocated(dev) / 2**30
+               if dev.type == "cuda" else None)
+    eng.step, eng.refill, trainer.step = raw_step, raw_refill, raw_train
+    actor.deliver = raw_deliver
+
+    # --- checks on what came out
+    bad = []
+    steps = [{"version": r["version"], "wall_s": w["at_s"],
+              "train_ms": w["train_ms"], "sim_time": r["time"],
+              "reward": r["reward"], "ess": r["ess"], "max_lag": r["max_lag"],
+              "loss": r["loss"]} for r, w in zip(log, step_wall)]
+    if [r["version"] for r in log] != [1, 2, 3]:
+        bad.append(f"optimizer steps {[r['version'] for r in log]}")
+    if not all(np.isfinite(r["loss"]) for r in log):
+        bad.append(f"losses {[r['loss'] for r in log]}")
+    bs = p.broadcast_stats()
+    if eng.version < 1 or bs["engines"][0]["streams_completed"] < 1:
+        bad.append(f"engine version {eng.version}, broadcast {bs}")
+    # every finished rollout: stamps never decrease; at random weights no
+    # answer is correct (a rollout that runs to max_len scores 0 less the
+    # task's soft length penalty, 0.4)
+    stamps_ok = all((np.diff(r.weight_versions) >= 0).all() for r in seen)
+    if not stamps_ok:
+        bad.append("a rollout's version stamps decrease")
+    versions = sorted({int(v) for r in seen
+                       for v in r.weight_versions[r.prompt_len:]})
+    correct = sum(r.reward >= 1.0 for r in seen)
+    whole = [f for f in refills if f["whole_groups"]]
+    for f in refills:
+        if f["prefills"] != f["distinct"] \
+                or f["forks"] != f["admitted"] - f["distinct"]:
+            bad.append(f"refill {f}: identical prompts were not forked")
+    forks_whole = sum(f["forks"] for f in whole)
+    prefills_whole = sum(f["prefills"] for f in whole)
+    if not whole or forks_whole != (PIPE_GROUP - 1) * prefills_whole:
+        bad.append(f"whole groups: {prefills_whole} prefills, "
+                   f"{forks_whole} forks")
+    # one paged decode step of the running engine under the profiler
+    profile = _profile(lambda: eng.step(), dev) if dev.type == "cuda" \
+        else None
+    try:
+        eng.tables.check()
+    except AssertionError as e:
+        bad.append(f"block tables: {e}")
+    pages = {"live_at_end": eng.allocator.live_pages,
+             "peak_live": max(live_pages, default=0),
+             "pool": eng.allocator.n_pages}
+    eng.reset_slots()
+    if eng.allocator.free_pages != eng.allocator.n_pages - 1:
+        bad.append(f"reset_slots left {eng.allocator.live_pages} pages live")
+    for name in ("flash_decode_paged", "prefill_attention", "flash_attention",
+                 "fused_logprob_fwd", "fused_logprob_bwd"):
+        if launches[name] <= 0:
+            bad.append(f"{name} was never launched on the pipeline path")
+    check = _paged_against_slots(cfg, trainer.params, dev, ec.n_slots)
+    if not (check["tokens_equal"] and check["logprobs_bitwise"]
+            and check["stamps_equal"]):
+        bad.append(f"paged against slots: {check}")
+    steady = step_s[1:]
+    res = {"phase": "pipeline", "gpu": gpu, "config": cfg.name,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": str(cfg.dtype).replace("torch.", ""),
+           "engine": dataclasses.asdict(ec),
+           "pipeline": {k: v for k, v in dataclasses.asdict(pc).items()
+                        if k != "health"},
+           "bcast_bytes_per_flash": hw.bcast_bytes_per_flash,
+           "run_s": run_s, "opt_steps": steps,
+           "rollouts": len(seen), "rollouts_correct": correct,
+           "rollout_versions": versions,
+           "decode_steps": len(step_s),
+           "decode_step_ms_median": (statistics.median(steady) * 1e3
+                                     if steady else None),
+           "generated_tokens_per_s": tokens / sum(step_s),
+           "tokens_generated": tokens,
+           "prompt_prefills": eng.prompt_prefills,
+           "prefix_forks": eng.prefix_forks,
+           "pages_copied": eng.pages_copied,
+           "slots_preempted": eng.slots_preempted, "pages": pages,
+           "refills": refills, "engine_version": eng.version,
+           "broadcast": {"pause_per_update":
+                         bs["engines"][0]["pause_per_update"],
+                         "streams_completed":
+                         bs["engines"][0]["streams_completed"],
+                         "published": bs["published"]},
+           "stamps_nondecreasing": stamps_ok,
+           "peak_mem_gib": peak_gb, "launches": launches,
+           "paged_against_slots": check, "profile": profile,
+           "failures": bad}
+    emit(res)
+    if bad:
+        raise SystemExit("pipeline phase failed: " + "; ".join(bad))
+    return res
+
+
+# ---------------------------------------------------------------------------
+
+def summary(kernels: list, paths: dict, gpu: str) -> list:
     """One entry per kernel: its case at the main path's shapes in bfloat16
-    and its launches on the path that runs it (the serve phase for the
-    attention kernels, the train phase for the fused loss)."""
+    and its launches on the path that runs it (the serve phase for the slot
+    attention kernels, the train phase for the fused loss, the pipeline
+    phase for the paged decode). `paths` maps a phase to its result."""
     out = []
-    for name, (source, replaces, main_label) in KERNELS.items():
+    for name, (source, replaces, main_label, home) in KERNELS.items():
         rows = [r for r in kernels if r["name"] == name]
         main_row = next((r for r in rows if r["label"] == main_label
                          and r["dtype"] == "bfloat16"), None)
         by_phase = {ph: res["launches"][name]
-                    for ph, res in (("serve", serve), ("train", train)) if res}
-        home = "train" if name in FUSED else "serve"
+                    for ph, res in paths.items() if res}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": by_phase.get(home),
                  "launches_by_phase": by_phase, "gpu": gpu}
@@ -1011,7 +1428,8 @@ def summary(kernels: list, serve, train, gpu: str) -> list:
                              yardstick=main_row["yardstick"])
         entry["cases"] = [{k: r[k] for k in ("label", "dtype", "max_err",
                                              "err_measure", "err_value",
-                                             "tol", "ok") if k in r}
+                                             "tol", "bitwise_vs_flash_decode",
+                                             "ok") if k in r}
                           for r in rows]
         out.append(entry)
     return out
@@ -1025,6 +1443,8 @@ def main(argv=None) -> int:
                     help="llama3-8b depth in the serve phase")
     ap.add_argument("--train-layers", type=int, default=40,
                     help="granite-3-2b depth in the train phase")
+    ap.add_argument("--pipeline-layers", type=int, default=40,
+                    help="granite-3-2b depth in the pipeline phase")
     args = ap.parse_args(argv)
     phases = [p for p in args.only.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1039,7 +1459,7 @@ def main(argv=None) -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     gpu = nvidia_smi("name,power.limit")
-    kernels, serve, train = [], None, None
+    kernels, paths = [], {}
     if "env" in phases:
         phase_env(gpu)
     if "build" in phases:
@@ -1047,13 +1467,18 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         kernels = phase_kernels(gpu)
         kernels += phase_fused(gpu, (torch.float32, torch.bfloat16))
+    # each path runs with the launch counts set to 0 just before it and
+    # read just after (the phases reset and report them)
     if "serve" in phases:
-        serve = phase_serve(gpu, args.layers)
+        paths["serve"] = phase_serve(gpu, args.layers)
         torch.cuda.empty_cache()
     if "train" in phases:
-        train = phase_train(gpu, args.train_layers)
+        paths["train"] = phase_train(gpu, args.train_layers)
+        torch.cuda.empty_cache()
+    if "pipeline" in phases:
+        paths["pipeline"] = phase_pipeline(gpu, args.pipeline_layers)
 
-    emit({"kernels": summary(kernels, serve, train, gpu)})
+    emit({"kernels": summary(kernels, paths, gpu)})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

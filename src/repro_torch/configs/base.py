@@ -7,7 +7,7 @@ multimodal fields arrive with the slices that port those paths.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -58,3 +58,61 @@ def kv_cache_specs(cfg: ModelConfig, batch: int,
     cl = effective_cache_len(cfg, cache_len)
     shape = (cfg.n_layers, batch, cl, cfg.n_kv_heads, cfg.d_head)
     return {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
+
+
+def paged_layout(cfg: ModelConfig, cache_len: int,
+                 page_size: int) -> Tuple[int, int]:
+    """(page_size, n_blocks) for a paged attention cache of logical length
+    `cache_len`. page_size is reduced until it divides the cache length so
+    every logical ring position maps to exactly one (block, offset)."""
+    cl = effective_cache_len(cfg, cache_len)
+    if cl == 0:
+        return 0, 0
+    ps = max(1, min(int(page_size), cl))
+    while cl % ps:
+        ps -= 1
+    return ps, cl // ps
+
+
+def paged_cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
+                      n_pages: int, page_size: int
+                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """(shape, dtype) of each paged decode-state leaf: the attention leaves
+    become page pools (L, n_pages, page_size, KV, Dh), one physical page
+    spanning every layer, so one host integer per logical block addresses
+    both leaves. The (batch, n_blocks) block table lives on the host."""
+    ps, _ = paged_layout(cfg, cache_len, page_size)
+    shape = (cfg.n_layers, n_pages, ps, cfg.n_kv_heads, cfg.d_head)
+    return {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
+
+
+@dataclasses.dataclass(frozen=True)
+class HealthConfig:
+    """The HealthMonitor watchdog over the actor pool and the trainer's
+    numerical-robustness policy. Detection only observes until a threshold
+    trips, so a healthy run with the monitor on equals one without it."""
+    enabled: bool = True
+    # watchdog sweep cadence (flashes of simulated time)
+    interval: float = 20.0
+    # hang detection: heartbeat deadline = max(hang_grace,
+    # hang_factor * EWMA inter-tick gap) per engine
+    hang_grace: float = 120.0
+    hang_factor: float = 8.0
+    # straggler detection: speed-normalized EWMA tick cost vs the pool
+    # minimum; must exceed the factor for `patience` consecutive sweeps
+    straggler_factor: float = 2.5
+    straggler_patience: int = 2
+    # a prompt salvaged from this many failed or hung engines is
+    # quarantined instead of requeued
+    quarantine_after: int = 3
+    # a detected hang is escalated to fail/salvage/requeue, and the engine
+    # restarts this long after detection (None = leave it down)
+    hang_restart_after: Optional[float] = 60.0
+    # trainer: roll back to the newest intact checkpoint after this many
+    # consecutive guarded-bad steps (0 = never)
+    bad_step_rollback: int = 3
+    # EWMA loss-spike detector: |loss| > factor * EWMA(|loss|) marks the
+    # step bad (0.0 = off)
+    loss_spike_factor: float = 0.0
+    # rotated trainer_step_*.npz checkpoints kept for rollback
+    ckpt_keep: int = 3

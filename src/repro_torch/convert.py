@@ -7,7 +7,12 @@ norms), `lm_head (d,V)` unless tied, `value_head (d,1)` in float32.
 bfloat16 arrays are carried by their bits (numpy has no bfloat16 of its
 own; `params_to_numpy` returns `ml_dtypes.bfloat16` arrays for them).
 A train state converts the same way: params, the Adam step and float32
-moments `m`, `v` in the params' layout, and the version.
+moments `m`, `v` in the params' layout, and the version. A generation
+engine's state converts too (`engine_state_to_numpy`,
+`engine_state_from_numpy`): the device state under the JAX engine's keys
+(token buffer, logprobs, counters, the slot cache or the page pools), the
+host mirrors and, paged, the block table, the page refcounts and the free
+list, so two engines can start from the same paged state.
 """
 from __future__ import annotations
 
@@ -116,3 +121,48 @@ def train_state_to_numpy(state) -> dict:
                     "m": params_to_numpy(state.opt.m),
                     "v": params_to_numpy(state.opt.v)},
             "version": _to_numpy(state.version)}
+
+
+# host-side fields of an engine's state, by their attribute names
+_ENGINE_HOST = ("_host_active", "_host_ncached", "_host_prompt_len",
+                "ver_buf")
+_ENGINE_DEVICE = ("tokens", "lp", "n_cached", "prompt_len", "active")
+
+
+def engine_state_to_numpy(engine) -> dict:
+    """A `GenerationEngine`'s state as numpy: {"state": {tokens, lp,
+    n_cached, prompt_len, active, cache: {k, v}}, "host": {_host_active,
+    _host_ncached, _host_prompt_len, ver_buf}, and, paged, "table",
+    "refcount", "free" (the allocator's free list, in its order)}."""
+    st = engine.state
+    out = {"state": {k: _to_numpy(st[k]) for k in _ENGINE_DEVICE},
+           "host": {k: np.array(getattr(engine, k)) for k in _ENGINE_HOST}}
+    out["state"]["cache"] = {k: _to_numpy(v) for k, v in st["cache"].items()}
+    if engine.tables is not None:
+        out.update(table=engine.tables.table.copy(),
+                   refcount=engine.allocator.refcount.copy(),
+                   free=list(engine.allocator._free))
+    return out
+
+
+def engine_state_from_numpy(engine, state: dict) -> None:
+    """Load `state` (the layout of `engine_state_to_numpy`; the JAX
+    engine's arrays give the same) into `engine`, in place: every device
+    tensor keeps its dtype and device, and a paged engine's allocator and
+    block table take the given refcounts, free list and table, then are
+    cross-checked."""
+    st = engine.state
+    src = state["state"]
+    for k in _ENGINE_DEVICE:
+        st[k].copy_(_to_tensor(src[k], st[k].dtype, st[k].device))
+    for k, pool in st["cache"].items():
+        pool.copy_(_to_tensor(src["cache"][k], pool.dtype, pool.device))
+    for k in _ENGINE_HOST:
+        getattr(engine, k)[...] = np.asarray(state["host"][k])
+    if engine.tables is not None:
+        engine.tables.table[...] = np.asarray(state["table"])
+        engine.allocator.refcount[...] = np.asarray(state["refcount"])
+        engine.allocator._free = [int(p) for p in state["free"]]
+        engine.tables.check()
+        engine._bt_dirty = True
+        engine._sync_tables()

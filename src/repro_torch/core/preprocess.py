@@ -4,7 +4,9 @@ and applies the RLHF-style per-token KL penalty
 
     r_t  <-  r_task/T  -  beta * (log mu(y_t) - log pi_ref(y_t))
 
-before sequences reach the trainer.
+before sequences reach the trainer. In the co-simulation it adds its own
+stage latency (`stage_time`: a forward pass at tau/3 flashes per token on
+its chips).
 """
 from __future__ import annotations
 
@@ -25,10 +27,12 @@ from repro_torch.models import model as M
 @dataclasses.dataclass
 class PreprocessConfig:
     kl_coef: float = 0.0        # beta; 0 disables the KL term
+    n_chips: int = 2            # preprocessor workers (sim timing)
     # hard cap on rollout length (the engine's max_len). The ref forward
     # pads each batch to the next power of two of its longest rollout,
     # bounded by this, so a rollout is never clipped to a shorter buffer.
     max_len: int = 64
+    fwd_flashes_per_token: float = 4.92 / 3.0  # forward-only share of tau
 
 
 class Preprocessor:
@@ -108,3 +112,8 @@ class Preprocessor:
             assert len(r.ref_logprobs) == r.length
             out.append(r)
         return out
+
+    def stage_time(self, n_tokens: int) -> float:
+        """Simulated stage latency (flashes) for a batch of tokens."""
+        return n_tokens * self.pc.fwd_flashes_per_token / max(
+            self.pc.n_chips, 1)

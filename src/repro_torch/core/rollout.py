@@ -13,24 +13,35 @@ and the weight version it was sampled under.
 Device state is updated in place, with autograd off: the engine never
 builds a graph, even when it is handed parameters that require grad. The
 only device-to-host read of a decode step is the (H,) `finished` mask;
-the scheduling scalars have numpy mirrors on the host. Only the slot
-cache is ported (`EngineConfig.cache="paged"` raises).
+the scheduling scalars have numpy mirrors on the host.
+
+`EngineConfig.cache="paged"` replaces the slot cache with a page pool
+addressed through a ref-counted block table (`kernels/paged_cache.py`):
+admission is costed in pages, a GRPO group's identical prompts are
+prefilled once and forked copy-on-write, and page exhaustion preempts the
+least-progressed slot. The slot engine stays the oracle that paged
+rollouts match bit for bit.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, kv_cache_specs
+from repro_torch.configs.base import (ModelConfig, effective_cache_len,
+                                      kv_cache_specs, paged_cache_specs,
+                                      paged_layout)
 from repro_torch.core.weights import (chunk_spans, chunk_token, span_bytes,
                                       stream_digest, tree_flatten,
                                       tree_unflatten)
 from repro_torch.data.math_task import MathTask, Problem
 from repro_torch.data.packing import Rollout
 from repro_torch.device import resolve_device
+from repro_torch.kernels.paged_cache import (BlockTables, OutOfPages,
+                                             PageAllocator)
 from repro_torch.models import model as M
 
 
@@ -54,9 +65,25 @@ class EngineConfig:
     # computed against the FULL problem); "truncate" clips and admits,
     # counted in `prompts_truncated`.
     long_prompt: str = "reject"
-    # "slots": one contiguous max_len stripe per slot. "paged" is not
-    # ported yet (ROADMAP.md queue A.5).
+    # "slots": one contiguous max_len stripe per slot (the oracle).
+    # "paged": the attention leaves become page pools addressed through a
+    # ref-counted block table: short requests stop reserving max_len of
+    # cache, a GRPO group's prompt is prefilled once and forked
+    # copy-on-write, and admission is costed in pages.
     cache: str = "slots"
+    # logical tokens per page (reduced until it divides the cache length)
+    page_size: int = 16
+    # physical pages in the pool, including the reserved trash page 0.
+    # 0 = auto: n_slots * blocks_per_slot + 1, the slot cache's footprint
+    # (no eviction pressure); fewer pages rely on preemption.
+    n_pages: int = 0
+    # prefill a GRPO group's identical prompt once and fork the rest over
+    # shared pages (paged mode with chunked prefill only)
+    prefix_sharing: bool = True
+    # paged decode read path: "gather" runs the slot engine's attention on
+    # each slot's gathered view; "kernel" reads the pool through the block
+    # table (`flash_decode_paged`, equal to "gather" bit for bit)
+    paged_attention: str = "gather"
 
 
 # backstop for refill's reject-retry loop: after this many rejections in
@@ -67,6 +94,20 @@ _MAX_REJECTS_PER_REFILL = 1024
 def _zero_cache(cfg: ModelConfig, n_slots: int, max_len: int, device):
     return {k: torch.zeros(shape, dtype=dt, device=device)
             for k, (shape, dt) in kv_cache_specs(cfg, n_slots, max_len).items()}
+
+
+def _zero_paged_cache(cfg: ModelConfig, n_slots: int, max_len: int,
+                      n_pages: int, page_size: int, device):
+    specs = paged_cache_specs(cfg, n_slots, max_len, n_pages, page_size)
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in specs.items()}
+
+
+def _paged_ring_view(cache, block_tables):
+    """Gather pool leaves (L,NP,PS,...) into slot-layout (L,H,CL,...)
+    copies through the block table."""
+    bt = block_tables.long()
+    return {k: v[:, bt].flatten(2, 3) for k, v in cache.items()}
 
 
 def _admit_impl(st: Dict[str, Any], new_tokens, new_plen, new_ncached,
@@ -83,17 +124,22 @@ def _admit_impl(st: Dict[str, Any], new_tokens, new_plen, new_ncached,
 
 
 def _engine_step(params, st: Dict[str, Any], cfg: ModelConfig,
-                 ec: EngineConfig, generator: torch.Generator):
+                 ec: EngineConfig, generator: torch.Generator,
+                 block_tables=None):
     """One token for every active slot, state updated in place. st: tokens
     (H,T), lp (H,T), n_cached (H,), prompt_len (H,), active (H,) bool,
-    cache. Returns the (H,) bool `finished` mask, on the device."""
+    cache. block_tables: (H,NB) in paged mode; the host guarantees before
+    every step that each active slot's write block is an exclusively owned
+    page and that inactive rows point at the trash page. Returns the (H,)
+    bool `finished` mask, on the device."""
     H, T = st["tokens"].shape
     idx = torch.arange(H, device=st["tokens"].device)
     n_cached = st["n_cached"]
     cur_tok = st["tokens"][idx, n_cached][:, None]                # (H,1)
     positions = n_cached[:, None]                                 # (H,1)
     out = M.decode_step(params, cur_tok, positions, st["cache"], n_cached,
-                        cfg, ring=False)
+                        cfg, ring=False, block_tables=block_tables,
+                        paged_kernel=ec.paged_attention == "kernel")
     logits = out["logits"][:, 0] / max(ec.temperature, 1e-6)
     logp = torch.log_softmax(logits.float(), dim=-1)
 
@@ -150,6 +196,21 @@ def _recompute_impl(params, st: Dict[str, Any], cfg: ModelConfig) -> None:
         dst.copy_(torch.gather(full, 2, index))
 
 
+def _recompute_impl_paged(params, st: Dict[str, Any], block_tables,
+                          cfg: ModelConfig) -> None:
+    """Paged twin of `_recompute_impl`: recompute each slot's ring view,
+    then scatter it into the slot's pages. The caller has unshared every
+    block, so no page is written twice except the trash page (unallocated
+    entries, never read unmasked)."""
+    view = _paged_ring_view(st["cache"], block_tables)
+    _recompute_impl(params, dict(st, cache=view), cfg)
+    bt = block_tables.long()
+    for k, pool in st["cache"].items():
+        v = view[k]
+        pool[:, bt] = v.reshape(v.shape[:2] + tuple(bt.shape[1:])
+                                + (pool.shape[2],) + v.shape[3:])
+
+
 class GenerationEngine:
     """H-slot continuous-batching engine (Algorithm 2, Actor). Runs on the
     card unless `device="cpu"` is asked for; `params` must already live on
@@ -159,12 +220,11 @@ class GenerationEngine:
                  prompt_source: Callable[[], Optional[Problem]],
                  seed: int = 0, device="cuda"):
         self.device = resolve_device(device)
-        if ec.cache == "paged":
-            raise NotImplementedError(
-                "EngineConfig.cache='paged' is not ported yet: ROADMAP.md "
-                "queue A.5 (paged cache, with flash_decode_paged, queue B.6)")
-        if ec.cache != "slots":
+        if ec.cache not in ("slots", "paged"):
             raise ValueError(f"EngineConfig.cache: {ec.cache!r}")
+        if ec.paged_attention not in ("gather", "kernel"):
+            raise ValueError(
+                f"EngineConfig.paged_attention: {ec.paged_attention!r}")
         self.cfg, self.ec = cfg, ec
         self._check_params(params)
         self.params = params      # behavior weights μ
@@ -174,13 +234,37 @@ class GenerationEngine:
         dev = self.device
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(int(seed))
+        # paged KV cache: page pool + block tables. The block table lives on
+        # the host and is mirrored to the device once per change
+        # (`_bt_dirty`), not once per step.
+        self._paged = ec.cache == "paged"
+        self.allocator: Optional[PageAllocator] = None
+        self.tables: Optional[BlockTables] = None
+        self._bt: Optional[torch.Tensor] = None
+        self._bt_dirty = False
+        self._deferred: "collections.deque[Problem]" = collections.deque()
+        if self._paged:
+            ps, nb = paged_layout(cfg, T, ec.page_size)
+            n_pages = ec.n_pages or H * nb + 1
+            if n_pages - 1 < nb:
+                # a lone sequence must be able to fill its table even after
+                # preempting everyone else, or eviction cannot terminate
+                raise ValueError(
+                    f"n_pages={n_pages} cannot back one full sequence "
+                    f"({nb} blocks + trash page)")
+            self.allocator = PageAllocator(n_pages, ps)
+            self.tables = BlockTables(H, nb, self.allocator)
+            self._bt = torch.zeros((H, nb), dtype=torch.int32, device=dev)
+            cache = _zero_paged_cache(cfg, H, T, n_pages, ps, dev)
+        else:
+            cache = _zero_cache(cfg, H, T, dev)
         self.state: Dict[str, Any] = {
             "tokens": torch.zeros((H, T), dtype=torch.long, device=dev),
             "lp": torch.zeros((H, T), dtype=torch.float32, device=dev),
             "n_cached": torch.zeros((H,), dtype=torch.long, device=dev),
             "prompt_len": torch.ones((H,), dtype=torch.long, device=dev),
             "active": torch.zeros((H,), dtype=torch.bool, device=dev),
-            "cache": _zero_cache(cfg, H, T, dev),
+            "cache": cache,
         }
         # host-side bookkeeping
         self.problems: List[Optional[Problem]] = [None] * H
@@ -192,21 +276,33 @@ class GenerationEngine:
         self._host_active = np.zeros(H, bool)
         self._host_ncached = np.zeros(H, np.int64)
         self._host_prompt_len = np.ones(H, np.int64)
-        # attention cache length; a ring buffer when < T
-        self._cache_len = self.state["cache"]["k"].shape[2]
+        # attention cache length; a ring buffer when < T. Paged leaves are
+        # (L,NP,PS,...) pools, so the logical length comes from the layout.
+        if self._paged:
+            self._cache_len = self.tables.n_blocks * self.allocator.page_size
+            assert self._cache_len == effective_cache_len(cfg, T)
+        else:
+            self._cache_len = self.state["cache"]["k"].shape[2]
         # the effective chunk divides T (chunk windows never cross the
-        # token buffer end) and the cache length (ring writes stay
-        # contiguous)
+        # token buffer end), the cache length (ring writes stay contiguous)
+        # and, paged, the page size (a chunk lands in one logical block)
         chunk = max(int(ec.prefill_chunk), 0)
         if chunk:
             cl = self._cache_len
-            chunk = min(chunk, T, cl)
-            while T % chunk or cl % chunk:
+            ps = self.allocator.page_size if self._paged else cl
+            chunk = min(chunk, T, cl, ps)
+            while T % chunk or cl % chunk or ps % chunk:
                 chunk -= 1
         self.prefill_chunk_size = chunk
         self.prefill_invocations = 0       # chunked-prefill model calls
         self.prefill_tokens = 0            # prompt tokens admitted via prefill
         self.last_admit_prefill_tokens = 0
+        # paged-mode accounting
+        self.prompt_prefills = 0           # rows actually prefilled (leaders)
+        self.prefix_forks = 0              # rows admitted by COW fork
+        self.last_admit_pages = 0          # pages allocated by last refill
+        self.slots_preempted = 0           # page-exhaustion evictions
+        self.pages_copied = 0              # COW page copies made on device
         # long-prompt admission accounting (EngineConfig.long_prompt)
         self.prompts_rejected = 0
         self.prompts_truncated = 0
@@ -240,7 +336,14 @@ class GenerationEngine:
         self.params = params
         self.version = version
         if recompute_kv:
-            _recompute_impl(params, self.state, self.cfg)
+            if self._paged:
+                # the scatter overwrites every position of every referenced
+                # page, which must not clobber a page other forks still read
+                self._unshare_all()
+                self._sync_tables()
+                _recompute_impl_paged(params, self.state, self._bt, self.cfg)
+            else:
+                _recompute_impl(params, self.state, self.cfg)
 
     def begin_weight_stream(self, params, version: int, n_chunks: int = 8,
                             recompute_kv: bool = False,
@@ -309,7 +412,11 @@ class GenerationEngine:
         All slots go inactive and their token/KV contents are abandoned
         (admission overwrites tokens and prefill rewrites every cache
         position a later decode step may read); any half-filled weight
-        stream is dropped. Returns the number of live slots killed."""
+        stream is dropped. Paged, every page reference (shared prefix pages
+        drop one per holding slot) returns to the pool, and prompts deferred
+        by page pressure are dropped with the slots (a salvage path calls
+        `drain_deferred()` first). Returns the number of live slots
+        killed."""
         n = int(self._host_active.sum())
         H = self.ec.n_slots
         self._host_active[:] = False
@@ -317,11 +424,142 @@ class GenerationEngine:
         self._host_prompt_len[:] = 1
         self.problems = [None] * H
         self._wstream = None
+        self._deferred.clear()
+        if self._paged:
+            for s in range(H):
+                self.tables.release_row(s)
+            assert self.allocator.live_pages == 0, "pages leaked on reset"
+            self._bt_dirty = True
+            self._sync_tables()
         st = self.state
         st["n_cached"].zero_()
         st["prompt_len"].fill_(1)
         st["active"].zero_()
         return n
+
+    def drain_deferred(self) -> List[Problem]:
+        """Hand back prompts parked by page-exhaustion deferral or
+        preemption (the salvage path re-offers them to the pool)."""
+        out = list(self._deferred)
+        self._deferred.clear()
+        return out
+
+    # ----- paged-cache machinery ----------------------------------------
+    @property
+    def free_pages(self) -> int:
+        """Free pages in the pool (a large sentinel for the slot cache,
+        whose admission is bounded by slots only)."""
+        if not self._paged:
+            return 1 << 30
+        return self.allocator.free_pages
+
+    def pages_needed(self, prompt_len: int) -> int:
+        """Pages a prompt of `prompt_len` needs through admission and its
+        first decode write (its footprint is capped by the ring length)."""
+        if not self._paged:
+            return 0
+        return self.tables.blocks_for(
+            min(max(int(prompt_len), 1), self._cache_len))
+
+    def can_admit(self, prompt_len: int) -> bool:
+        """Page-costed admission check (the router's gate): a free slot
+        exists and the pool can back the prompt without evicting in-flight
+        work. Slot engines only check slots."""
+        if not (~self._host_active).any():
+            return False
+        return self.free_pages >= self.pages_needed(prompt_len)
+
+    def _sync_tables(self) -> None:
+        """Mirror the host block table to the device, once per change."""
+        if self._paged and self._bt_dirty:
+            self._bt.copy_(torch.from_numpy(self.tables.table))
+            self._bt_dirty = False
+
+    def _unshare_all(self) -> None:
+        """Break every copy-on-write share: afterwards each live page is
+        referenced by one table entry. No device copy: recompute_kv's
+        scatter overwrites every position of every referenced page."""
+        tb, alloc = self.tables, self.allocator
+        for s in range(self.ec.n_slots):
+            for j in range(tb.n_blocks):
+                p = int(tb.table[s, j])
+                if p and alloc.refcount[p] > 1:
+                    q = alloc.alloc()
+                    alloc.refcount[p] -= 1
+                    tb.table[s, j] = q
+                    self._bt_dirty = True
+
+    def _evict_one(self, requester: int) -> bool:
+        """Preempt the least-progressed active slot (ties: higher index) to
+        free its pages; its prompt re-enters through `_deferred` at the
+        front. Returns False when no victim exists."""
+        victims = [s for s in np.where(self._host_active)[0]
+                   if s != requester]
+        if not victims:
+            return False
+        progress = {s: int(self._host_ncached[s] - self._host_prompt_len[s])
+                    for s in victims}
+        victim = max(victims, key=lambda s: (-progress[s], s))
+        self.tables.release_row(victim)
+        self._bt_dirty = True
+        self._host_active[victim] = False
+        prob = self.problems[victim]
+        self.problems[victim] = None
+        if prob is not None:
+            self._deferred.appendleft(prob)
+        self.slots_preempted += 1
+        # the step reads `active` from the device state: push the kill
+        self.state["active"][int(victim)] = False
+        return True
+
+    def _ensure_block(self, s: int, j: int,
+                      copies: List[Tuple[int, int]]) -> None:
+        """Allocate or copy-on-write block j of slot s, evicting under page
+        pressure. Terminates: n_pages-1 >= n_blocks (checked at init) and
+        the requester holds < n_blocks pages when it needs one, so once
+        every other slot is evicted a free page exists."""
+        while True:
+            before = int(self.tables.table[s, j])
+            try:
+                pair = self.tables.ensure_writable(s, j)
+            except OutOfPages:
+                if not self._evict_one(s):
+                    raise
+                continue
+            if pair is not None:
+                copies.append(pair)
+                self.pages_copied += 1
+            if int(self.tables.table[s, j]) != before:
+                self._bt_dirty = True
+            return
+
+    def _prepare_pages_for_step(self) -> None:
+        """Before every decode step: make each active slot's write block
+        (ring position n_cached mod CL) exclusively owned (lazy alloc at
+        block entry, copy-on-write at a fork's divergence block) and make
+        the copies on the device. The step relies on it: no write ever
+        lands on a page with refcount > 1."""
+        ps = self.allocator.page_size
+        cl = self._cache_len
+        copies: List[Tuple[int, int]] = []
+        for s in np.where(self._host_active)[0]:
+            if not self._host_active[s]:
+                continue  # evicted by an earlier slot's allocation
+            j = (int(self._host_ncached[s]) % cl) // ps
+            self._ensure_block(int(s), j, copies)
+        if copies:
+            src = torch.tensor([c[0] for c in copies], device=self.device)
+            dst = torch.tensor([c[1] for c in copies], device=self.device)
+            for pool in self.state["cache"].values():
+                pool[:, dst] = pool[:, src]
+        self._sync_tables()
+
+    def _release_slot_pages(self, s: int) -> None:
+        """Rollout finished: drop the slot's page references (shared prefix
+        pages live on until the last fork finishes) and point its row at
+        the trash page, which takes the inactive row's stale writes."""
+        self.tables.release_row(int(s))
+        self._bt_dirty = True
 
     # ----- admission ----------------------------------------------------
     def _next_prompt(self, rejects_left: int
@@ -332,7 +570,8 @@ class GenerationEngine:
         source that yields nothing but overlong prompts."""
         T = self.ec.max_len
         while rejects_left > 0:
-            prob = self.prompt_source()
+            prob = (self._deferred.popleft() if self._deferred
+                    else self.prompt_source())
             if prob is None:
                 return None, 0, rejects_left
             pl = len(prob.prompt_ids)
@@ -354,10 +593,18 @@ class GenerationEngine:
         """Fill inactive slots with fresh prompts. The prompt source may
         return None to decline; those slots stay inactive. Returns the
         number admitted. Admission scatters the new rows into the device
-        state, then chunked prefill writes the prompts' K/V into the slot
-        cache in ceil((P-1)/chunk) batched forwards (prefill_chunk=0: the
-        legacy token-at-a-time loop)."""
+        state, then chunked prefill writes the prompts' K/V into the cache
+        in ceil((P-1)/chunk) batched forwards (prefill_chunk=0: the legacy
+        token-at-a-time loop).
+
+        Paged: a prompt enters only when the pool can back its blocks
+        (else it parks in `_deferred`, taken first next time, and the
+        engine stops pulling); identical prompts admitted together form a
+        GRPO prefix-sharing group whose leader alone runs prefill (and
+        alone counts prefill tokens and pages) while the rest fork its
+        pages copy-on-write."""
         self.last_admit_prefill_tokens = 0
+        self.last_admit_pages = 0
         free = np.where(~self._host_active)[0]
         if free.size == 0:
             return 0
@@ -365,6 +612,14 @@ class GenerationEngine:
         new_tokens = np.full((H, T), self.ec.pad_id, np.int64)
         new_plen = np.zeros(H, np.int64)
         mask = np.zeros(H, bool)
+        chunk = self.prefill_chunk_size
+        allocs0 = self.allocator.total_allocs if self._paged else 0
+        # prefix sharing needs the chunked path: forks resume at n_cached =
+        # P-1, which the legacy token-forcing loop never reaches
+        share = self._paged and chunk > 0 and self.ec.prefix_sharing
+        leaders: Dict[Tuple[int, ...], int] = {}
+        prefill_mask = np.zeros(H, bool)   # rows that run prefill
+        forks: List[Tuple[int, int]] = []  # (fork slot, leader slot)
         rejects_left = _MAX_REJECTS_PER_REFILL
         for s in free:
             prob, pl, rejects_left = self._next_prompt(rejects_left)
@@ -372,6 +627,25 @@ class GenerationEngine:
                 break
             if prob is None:
                 continue
+            key = tuple(prob.prompt_ids[:pl]) if share else None
+            if share and key in leaders:
+                forks.append((int(s), leaders[key]))
+            elif self._paged:
+                if self.allocator.free_pages < self.pages_needed(pl):
+                    # page-costed admission: park the prompt and stop
+                    # pulling; pages free up as rollouts finish
+                    self._deferred.appendleft(prob)
+                    break
+                need = (self.tables.blocks_for(
+                    min(max(pl - 1, 0), self._cache_len)) if chunk else 0)
+                if need:
+                    self.tables.alloc_prefix(int(s), need)
+                    self._bt_dirty = True
+                if share:
+                    leaders[key] = int(s)
+                prefill_mask[s] = True
+            else:
+                prefill_mask[s] = True
             new_tokens[s, :pl] = prob.prompt_ids[:pl]
             new_plen[s] = pl
             mask[s] = True
@@ -380,7 +654,6 @@ class GenerationEngine:
             self.started_at[s] = now
         if not mask.any():
             return 0
-        chunk = self.prefill_chunk_size
         # chunked path: decode resumes at the LAST prompt token
         # (n_cached = P-1); the legacy path starts at 0 and forces the
         # prompt token by token
@@ -393,17 +666,30 @@ class GenerationEngine:
         self._host_active[mask] = True
         self._host_prompt_len[mask] = new_plen[mask]
         self._host_ncached[mask] = target_nc[mask]
+        self._sync_tables()
         if chunk:
-            n_pre = int(new_plen[mask].max()) - 1
+            # forks never prefill: their cache is the leader's prefix
+            n_pre = (int(new_plen[prefill_mask].max()) - 1
+                     if prefill_mask.any() else 0)
+            pre_t = torch.from_numpy(prefill_mask).to(dev)
             st = self.state
             for off in range(0, max(n_pre, 0), chunk):
                 M.prefill_chunk(self.params, st["tokens"], st["prompt_len"],
-                                off, mask_t, st["cache"], self.cfg,
-                                chunk=chunk)
+                                off, pre_t, st["cache"], self.cfg,
+                                chunk=chunk, block_tables=self._bt)
                 self.prefill_invocations += 1
             self.last_admit_prefill_tokens = int(
-                np.maximum(new_plen[mask] - 1, 0).sum())
+                np.maximum(new_plen[prefill_mask] - 1, 0).sum())
             self.prefill_tokens += self.last_admit_prefill_tokens
+            self.prompt_prefills += int(prefill_mask.sum())
+        if forks:
+            for f, ldr in forks:
+                self.tables.fork_row(f, ldr)
+            self._bt_dirty = True
+            self._sync_tables()
+            self.prefix_forks += len(forks)
+        if self._paged:
+            self.last_admit_pages = self.allocator.total_allocs - allocs0
         return int(mask.sum())
 
     @property
@@ -416,10 +702,15 @@ class GenerationEngine:
              now: float = 0.0) -> List[Rollout]:
         """Generate one token on every active slot; returns the rollouts
         that finished this step."""
+        if self._paged:
+            # every active slot's next write lands on an exclusively owned
+            # page (may preempt a slot, which deactivates it before the
+            # mirrors are copied)
+            self._prepare_pages_for_step()
         prev_active = self._host_active.copy()
         prev_ncached = self._host_ncached.copy()
         finished_t = _engine_step(self.params, self.state, self.cfg,
-                                  self.ec, self.generator)
+                                  self.ec, self.generator, self._bt)
         finished = finished_t.cpu().numpy()   # the step's one device sync
         # record the weight version of tokens written this step — only
         # tokens actually *sampled* under μ; prompt-forced tokens keep 0
@@ -439,6 +730,8 @@ class GenerationEngine:
             tokens = self.state["tokens"][rows_t].cpu().numpy().astype(np.int32)
             lp = self.state["lp"][rows_t].cpu().numpy()
             for i, s in enumerate(rows):
+                if self._paged:
+                    self._release_slot_pages(int(s))
                 L = min(int(self._host_ncached[s]) + 1, self.ec.max_len)
                 prob = self.problems[s]
                 pl = int(self._host_prompt_len[s])

@@ -26,9 +26,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
-launches: Dict[str, int] = {"flash_decode": 0, "prefill_attention": 0,
-                            "flash_attention": 0, "fused_logprob_fwd": 0,
-                            "fused_logprob_bwd": 0}
+launches: Dict[str, int] = {"flash_decode": 0, "flash_decode_paged": 0,
+                            "prefill_attention": 0, "flash_attention": 0,
+                            "fused_logprob_fwd": 0, "fused_logprob_bwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448        # bytes of shared memory a block may use on sm_90
@@ -154,6 +154,60 @@ def flash_decode(q, k_cache, v_cache, lengths, *, scale: float):
                  out.stride(1), _stream(q))
     _raise_on("flash_decode", err)
     launches["flash_decode"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# flash_decode_paged
+# ---------------------------------------------------------------------------
+
+def flash_decode_paged(q, k_pool, v_pool, block_tables, lengths, *,
+                       scale: float):
+    """One-token decode attention straight from the page pool. q: (B,H,Dk);
+    pools: (NP,PS,KV,D) (a layer slice of the engine's (L,NP,PS,KV,D) pool,
+    read in place); block_tables: (B,NB) page ids, logical position p of row
+    b at page block_tables[b, p // PS], offset p % PS; lengths: (B,) valid
+    logical positions per row. Returns (B,H,Dv) in q's dtype, equal bit for
+    bit to `flash_decode` on the gathered (B, NB*PS, KV, D) view."""
+    if q.device.type == "cpu":
+        return ref.flash_decode_paged_ref(q, k_pool, v_pool, block_tables,
+                                          lengths, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_paged: unsupported device {q.device}")
+    _forward_only("flash_decode_paged", q, k_pool, v_pool)
+    B, H, Dk = q.shape
+    NP, PS, KV, Dk2 = k_pool.shape
+    Dv = v_pool.shape[-1]
+    NB = block_tables.shape[-1]
+    if (Dk2 != Dk or v_pool.shape[:3] != k_pool.shape[:3] or H % KV
+            or tuple(block_tables.shape) != (B, NB)
+            or tuple(lengths.shape) != (B,)):
+        raise ValueError(
+            f"flash_decode_paged: shapes q {tuple(q.shape)}, k_pool "
+            f"{tuple(k_pool.shape)}, v_pool {tuple(v_pool.shape)}, "
+            f"block_tables {tuple(block_tables.shape)}, lengths "
+            f"{tuple(lengths.shape)}")
+    rep = H // KV
+    code = _check("flash_decode_paged", {"q": q, "k_pool": k_pool,
+                                         "v_pool": v_pool}, rep, Dk, Dv)
+    if block_tables.device != q.device or lengths.device != q.device:
+        raise ValueError("flash_decode_paged: block_tables and lengths must "
+                         "be on q's device")
+    bt = block_tables.to(torch.int32).contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 10)(
+        *q.stride()[:2], *k_pool.stride()[:3], *v_pool.stride()[:3],
+        *out.stride()[:2])
+    fn = _lib("paged_decode", "repro_flash_decode_paged",
+              [_i] + [_vp] * 6 + [_i] * 7 + [_f, _vp, _vp])
+    with torch.cuda.device(q.device):
+        err = fn(code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 bt.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, KV,
+                 rep, PS, NB, Dk, Dv, float(scale),
+                 ctypes.cast(strides, ctypes.c_void_p), _stream(q))
+    _raise_on("flash_decode_paged", err)
+    launches["flash_decode_paged"] += 1
     return out
 
 

@@ -53,6 +53,19 @@ def flash_decode_ref(q, k_cache, v_cache, lengths, *, scale: float):
     return out.reshape(B, H, v_cache.shape[-1]).to(q.dtype)
 
 
+def flash_decode_paged_ref(q, k_pool, v_pool, block_tables, lengths, *,
+                           scale: float):
+    """q: (B,H,Dk); pools: (NP,PS,KV,D); block_tables: (B,NB) page ids;
+    lengths: (B,) valid logical positions per row. Gathers each row's pages
+    into the contiguous (B, NB*PS, KV, D) view (logical position p of row b
+    is page block_tables[b, p // PS] at offset p % PS), then runs
+    `flash_decode_ref` on it. Returns (B,H,Dv) in q's dtype."""
+    bt = block_tables.long()
+    k = k_pool[bt].flatten(1, 2)
+    v = v_pool[bt].flatten(1, 2)
+    return flash_decode_ref(q, k, v, lengths, scale=scale)
+
+
 def prefill_attention_ref(q, k_chunk, v_chunk, k_cache, v_cache, offset: int,
                           *, scale: float):
     """Chunked-prefill attention. q: (B,C,H,Dk); k_chunk/v_chunk:

@@ -1,5 +1,6 @@
 """GQA attention layers of the dense decoder: full-sequence forward,
-one-token decode against the slot cache, and chunked prefill.
+one-token decode against the slot cache or the paged pool, and chunked
+prefill.
 
 Inference attention goes through `kernels.ops`, which runs the CUDA kernels
 on the card and their plain versions on the CPU; the kernels take any shape
@@ -172,21 +173,40 @@ def write_cache(cache: torch.Tensor, new: torch.Tensor,
 
 
 def gqa_decode(p, x, positions, cache_k, cache_v, cache_index,
-               cfg: ModelConfig, ring: bool):
-    """One-token decode. x: (B,1,d); caches (B,CL,KV,Dh), updated in place;
-    cache_index: (B,) positions. Returns y (B,1,d)."""
+               cfg: ModelConfig, ring: bool, block_tables=None,
+               paged_kernel: bool = False):
+    """One-token decode. x: (B,1,d); caches (B,CL,KV,Dh), or page pools
+    (NP,PS,KV,Dh) when `block_tables` (B,NB) is given, updated in place;
+    cache_index: (B,) positions. Paged: the token is written into its page,
+    then attention runs either on the gathered per-slot view (the slot
+    engine's computation on the same values) or, with `paged_kernel`, on
+    the pool through the block table (`flash_decode_paged`, equal bit for
+    bit). Returns y (B,1,d)."""
     B = x.shape[0]
     q, k, v = _project(p, x, positions, cfg)
-    CL = cache_k.shape[1]
-    write_cache(cache_k, k, cache_index)
-    write_cache(cache_v, v, cache_index)
+    if block_tables is None:
+        CL = cache_k.shape[1]
+        write_cache(cache_k, k, cache_index)
+        write_cache(cache_v, v, cache_index)
+    else:
+        CL = block_tables.shape[1] * cache_k.shape[1]
+        write_cache_paged(cache_k, k, cache_index, block_tables)
+        write_cache_paged(cache_v, v, cache_index, block_tables)
     if ring:
         lengths = torch.full((B,), CL, dtype=torch.int32, device=x.device)
     else:
         # clamp to CL: once a ring cache has wrapped every slot is valid
         lengths = torch.clamp(cache_index + 1, max=CL).to(torch.int32)
-    y = kops.flash_decode(q[:, 0], cache_k, cache_v, lengths,
-                          scale=_scale(cfg))
+    if block_tables is None:
+        y = kops.flash_decode(q[:, 0], cache_k, cache_v, lengths,
+                              scale=_scale(cfg))
+    elif paged_kernel:
+        y = kops.flash_decode_paged(q[:, 0], cache_k, cache_v, block_tables,
+                                    lengths, scale=_scale(cfg))
+    else:
+        y = kops.flash_decode(q[:, 0], paged_gather(cache_k, block_tables),
+                              paged_gather(cache_v, block_tables), lengths,
+                              scale=_scale(cfg))
     return _out_proj(p, y)[:, None]
 
 
@@ -207,16 +227,74 @@ def write_cache_chunk(cache: torch.Tensor, new: torch.Tensor, offset: int,
 
 
 def gqa_prefill_chunk(p, x, positions, cache_k, cache_v, offset: int,
-                      write_mask, cfg: ModelConfig):
+                      write_mask, cfg: ModelConfig, block_tables=None):
     """One GQA layer over a C-token prompt chunk. x: (B,C,d). Attends the
     chunk to the cache prefix and itself, then writes the chunk's K/V at
     offset mod CL masked by write_mask (attend-then-write: on a ring the
-    writes evict exactly the slots leaving the window). Returns y
+    writes evict exactly the slots leaving the window). With
+    `block_tables` the caches are page pools: the chunk attends to the
+    gathered view and is written into its page (the engine keeps the chunk
+    a divisor of the page size, so it lands in one block). Returns y
     (B,C,d); the caches are updated in place."""
     q, k, v = _project(p, x, positions, cfg)
-    y = kops.prefill_attention(q, k, v, cache_k, cache_v, offset,
+    if block_tables is None:
+        view_k, view_v = cache_k, cache_v
+    else:
+        view_k = paged_gather(cache_k, block_tables)
+        view_v = paged_gather(cache_v, block_tables)
+    y = kops.prefill_attention(q, k, v, view_k, view_v, offset,
                                scale=_scale(cfg))
-    off_w = offset % cache_k.shape[1]
-    write_cache_chunk(cache_k, k, off_w, write_mask)
-    write_cache_chunk(cache_v, v, off_w, write_mask)
+    off_w = offset % view_k.shape[1]
+    if block_tables is None:
+        write_cache_chunk(cache_k, k, off_w, write_mask)
+        write_cache_chunk(cache_v, v, off_w, write_mask)
+    else:
+        write_cache_chunk_paged(cache_k, k, off_w, write_mask, block_tables)
+        write_cache_chunk_paged(cache_v, v, off_w, write_mask, block_tables)
     return _out_proj(p, y)
+
+
+# ---------------------------------------------------------------------------
+# paged KV cache: block-table gather and writes. Each slot maps logical
+# block j (ring positions [j*PS, (j+1)*PS)) to a page of the pool. The
+# default read path gathers the per-slot contiguous view and runs the slot
+# engine's attention on it, so the paged engine equals the slot engine bit
+# for bit (the valid region of the view is the slot cache; trash-page
+# contents only appear at positions every mask excludes). Writes go into
+# the pool in place; the engine's copy-on-write discipline guarantees that
+# a written page has one owner, except the trash page, which no unmasked
+# read ever sees.
+# ---------------------------------------------------------------------------
+
+def paged_gather(pool, block_tables):
+    """pool: (NP,PS,...); block_tables: (B,NB). Returns the per-slot view
+    (B, NB*PS, ...): logical ring position p of row b at view[b, p]."""
+    return pool[block_tables.long()].flatten(1, 2)
+
+
+def write_cache_paged(pool, new, index, block_tables) -> None:
+    """Paged twin of `write_cache`: write `new` (B,1,...) at ring position
+    index mod CL of each row, in place. Inactive rows' block-table entries
+    are the trash page, which absorbs their stale writes."""
+    PS, NB = pool.shape[1], block_tables.shape[1]
+    pos = torch.remainder(index, NB * PS).expand(new.shape[0])
+    pages = block_tables.long().gather(1, (pos // PS)[:, None])[:, 0]
+    pool[pages, pos % PS] = new[:, 0].to(pool.dtype)
+
+
+def write_cache_chunk_paged(pool, new, offset: int, write_mask,
+                            block_tables) -> None:
+    """Paged twin of `write_cache_chunk`, in place: the chunk [offset,
+    offset+C) lies in one logical block (C divides the page size). Masked
+    rows write back what they read, so live rows' pages keep their bytes
+    and rows on the trash page all write the same ones."""
+    C, PS = new.shape[1], pool.shape[1]
+    blk, off = divmod(int(offset), PS)
+    pages = block_tables[:, blk].long()
+    merged = new.to(pool.dtype)
+    if write_mask is not None:
+        cur = pool[pages, off:off + C]
+        shape = tuple(write_mask.shape) + (1,) * (merged.dim()
+                                                  - write_mask.dim())
+        merged = torch.where(write_mask.reshape(shape), merged, cur)
+    pool[pages, off:off + C] = merged

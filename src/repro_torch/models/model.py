@@ -1,5 +1,5 @@
 """The dense GQA decoder LM: parameters, full-sequence forward, one-token
-decode and chunked prefill against the slot cache.
+decode and chunked prefill against the slot cache or the paged pool.
 
 Parameters are a nested dict in the JAX package's layout (stacked `(L, ...)`
 leaves under `groups[0]`), so a tree converts leaf for leaf between the two
@@ -205,19 +205,25 @@ def forward(params: Params, tokens, positions, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 def decode_step(params: Params, tokens, positions, cache, cache_index,
-                cfg: ModelConfig, *, ring: Optional[bool] = None):
-    """tokens, positions: (B,1); cache: {"k", "v"} (L,B,CL,KV,Dh), updated
-    in place; cache_index: (B,) write positions. Returns dict(logits
-    (B,1,V), values (B,1)?, cache). ring=None takes the full ring exactly
-    when the config is sliding-window (as the JAX package does); the engine
-    passes ring=False and masks by count."""
+                cfg: ModelConfig, *, ring: Optional[bool] = None,
+                block_tables=None, paged_kernel: bool = False):
+    """tokens, positions: (B,1); cache: {"k", "v"} (L,B,CL,KV,Dh), or page
+    pools (L,NP,PS,KV,Dh) when `block_tables` (B,NB) is given, updated in
+    place; cache_index: (B,) write positions. `paged_kernel` reads the pool
+    through the block table (`flash_decode_paged`) instead of gathering
+    each slot's view. Returns dict(logits (B,1,V), values (B,1)?, cache).
+    ring=None takes the full ring exactly when the config is
+    sliding-window (as the JAX package does); the engine passes ring=False
+    and masks by count."""
     if ring is None:
         ring = cfg.attention_variant == "sliding_window"
     h = params["embed"][tokens]
     for l, lp in enumerate(layer_views(params["groups"][0], cfg.n_layers)):
         x = rms_norm(h, lp["norm1"], cfg.norm_eps)
         a = attn.gqa_decode(lp["attn"], x, positions, cache["k"][l],
-                            cache["v"][l], cache_index, cfg, ring)
+                            cache["v"][l], cache_index, cfg, ring,
+                            block_tables=block_tables,
+                            paged_kernel=paged_kernel)
         h = _ffn(cfg, h + a, lp)
     out = _outputs(params, cfg, h, logits=True)
     out["cache"] = cache
@@ -230,7 +236,7 @@ def decode_step(params: Params, tokens, positions, cache, cache_index,
 
 def prefill_chunk(params: Params, tokens, prompt_len, offset: int, admit_mask,
                   cache, cfg: ModelConfig, *, chunk: int,
-                  logits: bool = False):
+                  logits: bool = False, block_tables=None):
     """One chunk of chunked-prefill admission: prompt positions
     [offset, offset+chunk) of every slot through the whole stack, K/V
     written into the cache in place. tokens: (B,T) slot token buffer;
@@ -242,7 +248,9 @@ def prefill_chunk(params: Params, tokens, prompt_len, offset: int, admit_mask,
     garbage. Admission needs no logits (the first completion token is
     sampled by the decode step at n_cached = prompt_len - 1); `logits=True`
     also runs the last FFN and the head, to check the chunk's forward.
-    Returns dict(cache, logits (B,C,V)?, values (B,C)?)."""
+    With `block_tables` (B,NB) the cache leaves are page pools and the
+    chunk must lie in one page. Returns dict(cache, logits (B,C,V)?,
+    values (B,C)?)."""
     B = tokens.shape[0]
     toks = tokens[:, offset:offset + chunk]
     positions = (offset + torch.arange(chunk, device=tokens.device)
@@ -253,7 +261,8 @@ def prefill_chunk(params: Params, tokens, prompt_len, offset: int, admit_mask,
     for l, lp in enumerate(layer_views(params["groups"][0], cfg.n_layers)):
         x = rms_norm(h, lp["norm1"], cfg.norm_eps)
         a = attn.gqa_prefill_chunk(lp["attn"], x, positions, cache["k"][l],
-                                   cache["v"][l], offset, kv_write_mask, cfg)
+                                   cache["v"][l], offset, kv_write_mask, cfg,
+                                   block_tables=block_tables)
         if logits or l + 1 < cfg.n_layers:  # else the last FFN feeds nothing
             h = _ffn(cfg, h + a, lp)
     out = _outputs(params, cfg, h, logits=True) if logits else {}

@@ -321,9 +321,18 @@ def test_reset_slots_matches_jax():
     assert len(tout) == 2
 
 
-def test_paged_cache_is_not_ported_yet():
+def test_engine_config_rejects_unknown_cache_and_read_path():
+    """The paged cache is ported (tests/test_torch_paged.py); a cache or a
+    paged read path the engine does not know still raises."""
     _, tcfg = _configs()
     tp = TM.init_params(tcfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GenerationEngine(tcfg, tp, EngineConfig(cache="paged"), lambda: None,
+    with pytest.raises(ValueError, match="cache"):
+        GenerationEngine(tcfg, tp, EngineConfig(cache="ring"), lambda: None,
                          device="cpu")
+    with pytest.raises(ValueError, match="paged_attention"):
+        GenerationEngine(tcfg, tp, EngineConfig(cache="paged",
+                                                paged_attention="pallas"),
+                         lambda: None, device="cpu")
+    eng = GenerationEngine(tcfg, tp, EngineConfig(cache="paged"),
+                           lambda: None, device="cpu")
+    assert eng.free_pages == eng.allocator.n_pages - 1

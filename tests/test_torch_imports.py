@@ -9,6 +9,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch import (ConventionalConfig, ConventionalRL, PipelineConfig,
+                         PipelineRL)
 from repro_torch.configs import get_config
 from repro_torch.convert import (params_from_numpy, params_to_numpy,
                                  train_state_from_numpy, train_state_to_numpy)
@@ -41,7 +43,7 @@ print("BAD", bad)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n_loaded = int(out.stdout.split("LOADED ")[1].split()[0])
-    assert n_loaded >= 20
+    assert n_loaded >= 28
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -91,3 +93,30 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(ValueError, match="params on"):
         GenerationEngine(cfg, params, EngineConfig(), lambda: None,
                          device="meta")
+
+
+def test_orchestration_entry_points_default_to_the_card(monkeypatch):
+    """PipelineRL and ConventionalRL build their Trainer and engines on the
+    card unless told otherwise; with `device="cpu"` every piece is on the
+    CPU, the paged engine included."""
+    from repro_torch.data.math_task import MathTask
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    task = MathTask()
+    cfg = get_config("tiny")
+    params = TM.init_params(cfg, seed=0, device="cpu")
+    ec = EngineConfig(n_slots=2, max_len=16, cache="paged",
+                      paged_attention="kernel")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PipelineRL(cfg, params, task, ec, PipelineConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ConventionalRL(cfg, params, task, ec, ConventionalConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GenerationEngine(cfg, params, ec, lambda: None)
+    p = PipelineRL(cfg, params, task, ec, PipelineConfig(n_engines=2),
+                   device="cpu")
+    assert p.trainer.device.type == "cpu"
+    assert all(e.device.type == "cpu" and e._bt.device.type == "cpu"
+               for e in p.engines)
+    c = ConventionalRL(cfg, params, task, ec, ConventionalConfig(),
+                       device="cpu")
+    assert c.trainer.device.type == c.engine.device.type == "cpu"

@@ -201,10 +201,16 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     torch.testing.assert_close(
         out, ref.flash_decode_ref(q, kc, vc, lengths, scale=0.25),
         rtol=0, atol=0)
+    pool_k, pool_v = kc.reshape(B * 4, 8, KV, D), vc.reshape(B * 4, 8, KV, D)
+    bt = torch.arange(B * 4, dtype=torch.int32).reshape(B, 4)
+    out = ops.flash_decode_paged(q, pool_k, pool_v, bt, lengths, scale=0.25)
+    torch.testing.assert_close(
+        out, ref.flash_decode_paged_ref(q, pool_k, pool_v, bt, lengths,
+                                        scale=0.25), rtol=0, atol=0)
     assert ops.launches == before
-    assert set(ops.launches) == {"flash_decode", "prefill_attention",
-                                 "flash_attention", "fused_logprob_fwd",
-                                 "fused_logprob_bwd"}
+    assert set(ops.launches) == {"flash_decode", "flash_decode_paged",
+                                 "prefill_attention", "flash_attention",
+                                 "fused_logprob_fwd", "fused_logprob_bwd"}
 
 
 def test_unsupported_device_raises():
@@ -213,3 +219,8 @@ def test_unsupported_device_raises():
     with pytest.raises(ValueError, match="unsupported device"):
         ops.flash_decode(q, kc, kc, torch.ones(1, dtype=torch.int32,
                                                device="meta"), scale=0.25)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.flash_decode_paged(q, kc, kc, torch.ones((1, 1), dtype=torch.int32,
+                                                     device="meta"),
+                               torch.ones(1, dtype=torch.int32,
+                                          device="meta"), scale=0.25)
