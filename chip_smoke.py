@@ -4,6 +4,7 @@
 Run from the repository root:
 
     python3 chip_smoke.py                  # every phase, as a release check
+    python3 chip_smoke.py --only build,kernels,ssm
     python3 chip_smoke.py --only build,kernels,pipeline
     python3 chip_smoke.py --only build,kernels,train --train-layers 2
     python3 chip_smoke.py --only build,kernels,serve --layers 2
@@ -11,8 +12,7 @@ Run from the repository root:
 Phases, one JSON line each, every line tagged with the GPU's name and power
 limit (`nvidia-smi --query-gpu=name,power.limit`):
 
-1. env: versions of Python, torch, CUDA, nvcc and the driver, and the
-   bound of each TPU kernel still to port (`ssd_scan`) from its shapes.
+1. env: versions of Python, torch, CUDA, nvcc and the driver.
 2. build: nvcc builds every kernel from `src/repro_torch/kernels/csrc/`
    into `build/repro_torch/` (seconds, and ptxas's register and spill
    report).
@@ -32,10 +32,19 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
    The fused lm-head loss (forward, and the backward's `dh` and `dW`
    from one launch) against its vocab-blocked
    twin at granite-3-2b's head (N=4096 and the Preprocessor's N=8192,
-   D=2048, V=49155), llama3-8b's head, a tied (V,D) head and awkward V, N
-   and dw_chunks; values by max abs error (2e-5 / 2e-2), gradients by max
-   abs error over the largest entry (1e-4 / 2e-2), with the unfused
-   composite (logits, logsumexp, gather, entropy, autograd) as yardstick.
+   D=2048, V=49155), llama3-8b's head, mamba2-2.7b's (N=4096, D=2560,
+   V=50280), a tied (V,D) head and awkward V, N and dw_chunks; values by
+   max abs error (2e-5 / 2e-2), gradients by max abs error over the
+   largest entry (1e-4 / 2e-2), with the unfused composite (logits,
+   logsumexp, gather, entropy, autograd) as yardstick.
+   The SSD scan (`ssd_scan`, y and the final state) against the plain
+   chunked SSD at mamba2-2.7b's Preprocessor call (16 x 512 tokens, 80
+   heads of 64, state 128, chunk 64, x/B/C as strided views of one
+   tensor) and train shape (4 x 1024), and at awkward shapes (2 and 3
+   groups, P 32 and 16, N 16 and 8, chunks of 16 and 32, one chunk),
+   |err| <= atol + rtol |plain| with (1e-4, 1e-3) in float32 and (5e-2,
+   5e-2) in bfloat16; a differentiated call must raise. No PyTorch call
+   computes the scan, so it has no library time.
    Each row has the kernel's, the plain version's and the yardstick's
    times (CUDA events) and the card's bound.
 4. serve: llama3-8b at full width and depth in bfloat16 with random weights
@@ -71,6 +80,18 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
    tables, that `reset_slots` returns every page, the launches and the
    losses; then it runs 16 prompts for 32 decode steps through a paged
    engine (the paged kernel) and a slot engine and holds them bit for bit.
+7. ssm: the path of `ssd_scan`, `PipelineRL` on mamba2-2.7b at full width
+   and depth (`--ssm-layers`, default 64) in bfloat16 (fused loss, remat,
+   random weights from seed 0): `EngineConfig(n_slots=16, max_len=512,
+   prefill_chunk=64)` serving prompts of 256-384 random ids in plain
+   PyTorch, the Preprocessor (kl_coef 0.05) whose forward runs the scan
+   kernel in every layer, the Trainer (lr 1e-3, 4 x 1024 packing)
+   differentiating the plain chunked SSD, a broadcast streamed in 8
+   chunks, batch 16, 3 optimizer steps. It checks the steps, the swap and
+   the stamps, finite behavior logprobs, the launches (`ssd_scan` = layers
+   x Preprocessor calls, no attention kernel), and the Preprocessor's
+   reference logprobs on one batch through the kernel against the plain
+   scan (relative RMS <= 5e-2 after 64 bf16 layers).
 
 Then it prints the `{"kernels": [...]}` summary, the GPU's name and power
 limit as nvidia-smi gives them, and, last, `{"ok": true, "device": {...}}`.
@@ -80,6 +101,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import importlib.metadata
 import json
 import statistics
@@ -96,7 +118,7 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("env", "build", "kernels", "serve", "train", "pipeline")
+PHASES = ("env", "build", "kernels", "serve", "train", "pipeline", "ssm")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores,
 # float32 outside the tensor cores, HBM3 bandwidth
@@ -123,6 +145,8 @@ KERNELS = {
     "fused_logprob_bwd": ("src/repro_torch/kernels/csrc/fused_logprob.cu",
                           "src/repro/kernels/fused_logprob.py:284", "train",
                           "train"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:70", "preprocess", "ssm"),
 }
 N_FINISHED = 24
 UPDATE_STEPS = {"atomic": 50, "streamed": 100, "recompute_kv": 150}
@@ -195,27 +219,7 @@ def phase_env(gpu: str) -> None:
           "nvcc": nvcc[-1], "driver": nvidia_smi("driver_version"),
           "triton": triton, "device_count": torch.cuda.device_count(),
           "allow_tf32": [torch.backends.cuda.matmul.allow_tf32,
-                         torch.backends.cudnn.allow_tf32],
-          "still_to_port": unported_bounds()})
-
-
-def unported_bounds() -> list:
-    """The bound of each TPU kernel still to port, from its shapes alone:
-    `ssd_scan` (src/repro/kernels/ssd_scan.py:70) at mamba2-2.7b's widths
-    (80 heads of 64, one group, state 128, chunk 64) over a train-shaped
-    batch of 4 x 1024 tokens, bf16 in, the float32 state out. Bytes: x, dt,
-    B, C read once, y and the final state written once. Operations: per
-    (row, head, chunk) the four chunk products C.B^T, scores.(dt x),
-    C.state and B^T.(decay dt x)."""
-    b, l, h, p, g, n, q = 4, 1024, 80, 64, 1, 128, 64
-    nbytes = 2 * (2 * b * l * h * p + b * l * h + 2 * b * l * g * n) \
-        + 4 * (b * h * n * p + h)
-    flops = b * h * (l // q) * 2 * (q * q * n + q * q * p + 2 * q * n * p)
-    bound = _bound(nbytes, flops, torch.bfloat16)
-    return [{"name": "ssd_scan", "replaces": "src/repro/kernels/ssd_scan.py:70",
-             "shape": dict(b=b, l=l, h=h, p=p, g=g, n=n, chunk=q),
-             "bytes": nbytes, "flops": flops, "bound_ms": bound[0],
-             "bound_by": bound[1]}]
+                         torch.backends.cudnn.allow_tf32]})
 
 
 def _nvcc() -> str:
@@ -523,6 +527,7 @@ def fused_cases():
         ("preprocess", dict(N=8192, D=2048, V=49155, transpose=False,
                             bwd=False)),
         ("llama3-8b-head", dict(N=1024, D=4096, V=128256, transpose=False)),
+        ("mamba2-head", dict(N=4096, D=2560, V=50280, transpose=False)),
         ("tied-VD", dict(N=512, D=256, V=1000, transpose=True)),
         ("v50", dict(N=16, D=64, V=50, transpose=False)),
         ("v33-tied", dict(N=24, D=32, V=33, transpose=True)),
@@ -620,6 +625,138 @@ def phase_kernels(gpu: str) -> list:
     emit({"phase": "kernels", "gpu": gpu, "kernels": results})
     if failures:
         raise SystemExit("kernel disagrees with its plain version: "
+                         + "; ".join(failures))
+    return results
+
+
+# ssd_scan: y and the final state against the plain chunked SSD with the
+# tolerances `tests/test_kernels.py` holds the Pallas kernel to: |out -
+# plain| <= atol + rtol * |plain|. The plain version runs in float64 on the
+# same input values: at mamba2's widths the scan's sums cancel (|y| up to
+# ~400 where some entries are ~1), and the float32 plain version is itself
+# up to 1.15x the float32 tolerance away from the float64 one (measured on
+# the H100), so two float32 evaluations cannot be held to it against each
+# other. The float32 plain version's error is reported beside.
+SSD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (5e-2, 5e-2)}
+SSD_LIBRARY = "none (no PyTorch call computes the scan)"
+
+
+def ssd_case(b, l, h, p, g, n, chunk, dtype, seed, views=False):
+    """Inputs and callables of one ssd_scan case, in the law of the JAX
+    package's tests: x, B, C unit normal, dt = softplus(normal), A =
+    -exp(normal). `views`: x, B and C are slices of one (b, l, h*p + 2gn)
+    tensor, as the model passes its conv output."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if views:
+        xbc = _randn(gen, (b, l, h * p + 2 * g * n), dtype)
+        x = xbc[..., :h * p].view(b, l, h, p)
+        B = xbc[..., h * p:h * p + g * n].view(b, l, g, n)
+        C = xbc[..., h * p + g * n:].view(b, l, g, n)
+    else:
+        x = _randn(gen, (b, l, h, p), dtype)
+        B = _randn(gen, (b, l, g, n), dtype)
+        C = _randn(gen, (b, l, g, n), dtype)
+    dt = F.softplus(torch.randn((b, l, h), generator=gen, device="cuda"))
+    A = -torch.exp(torch.randn((h,), generator=gen, device="cuda"))
+    elt = x.element_size()
+    # bytes: x, B, C, dt and A read once, y and the state written once;
+    # operations: per (row, head, chunk) the causal triangle T of C.B^T and
+    # of scores.(dt x), then C.state and B^T.(decay dt x)
+    q, nc = chunk, l // chunk
+    tri = q * (q + 1) // 2
+    nbytes = elt * (2 * b * l * h * p + 2 * b * l * g * n) \
+        + 4 * (b * l * h + h + b * h * n * p)
+    flops = 2.0 * b * h * nc * (tri * n + tri * p + 2 * q * n * p)
+    return dict(
+        shape=dict(b=b, l=l, h=h, p=p, g=g, n=n, chunk=chunk, views=views),
+        args=(x, dt, A, B, C),
+        kernel=lambda: ops.ssd_scan(x, dt, A, B, C, chunk=chunk),
+        plain=lambda: ref.ssd_scan_ref(x, dt, A, B, C, chunk=chunk),
+        exact=lambda: ref.ssd_scan_ref(*(t.double() for t in (x, dt, A, B,
+                                                              C)),
+                                       chunk=chunk),
+        bound=_bound(nbytes, flops, dtype))
+
+
+def ssd_cases():
+    """(label, args) of ssd_scan: mamba2-2.7b's Preprocessor call (16 x 512,
+    the main path), its train shape (4 x 1024), then awkward shapes: heads
+    repeating over 2 groups, P 32, N 16, chunks of 16 and 32, one chunk."""
+    mamba = dict(h=80, p=64, g=1, n=128, chunk=64, views=True)
+    return [
+        ("preprocess", dict(b=16, l=512, **mamba)),
+        ("train-shape", dict(b=4, l=1024, **mamba)),
+        ("g2-p32-n16-c16", dict(b=2, l=96, h=6, p=32, g=2, n=16, chunk=16)),
+        ("g3-p16-n8-c32", dict(b=1, l=96, h=6, p=16, g=3, n=8, chunk=32)),
+        ("one-chunk", dict(b=3, l=64, h=4, p=64, g=1, n=128, chunk=64)),
+    ]
+
+
+def phase_ssd(gpu: str) -> list:
+    """ssd_scan against its plain version (in float64, see SSD_TOL) in
+    float32 and bfloat16, y and the final state; and a differentiated call
+    must raise."""
+    from repro_torch.kernels import ops
+    results, failures = [], []
+
+    def over(outs, exps, atol, rtol):
+        """Max abs errors of (y, state) and their largest ratio to the
+        tolerance."""
+        errs, ratio = [], 0.0
+        for o, e in zip(outs, exps):
+            d = (o.double() - e.double()).abs()
+            errs.append(float(d.max()))
+            ratio = max(ratio, float((d / (atol + rtol * e.double().abs()))
+                                     .max()))
+        return errs, ratio
+
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = SSD_TOL[dtype]
+        for seed, (label, args) in enumerate(ssd_cases()):
+            case = ssd_case(dtype=dtype, seed=200 + seed, **args)
+            out, plain, exact = case["kernel"](), case["plain"](), \
+                case["exact"]()
+            torch.cuda.synchronize()
+            errs, ratio = over(out, exact, atol, rtol)
+            errs32, ratio32 = over(out, plain, atol, rtol)
+            _, ratio_plain = over(plain, exact, atol, rtol)
+            finite = all(bool(torch.isfinite(t).all()) for t in out)
+            ok = finite and ratio <= 1.0
+            main = label in ("preprocess", "train-shape")
+            row = dict(name="ssd_scan", label=label, shape=case["shape"],
+                       dtype=str(dtype).replace("torch.", ""),
+                       max_err=max(errs), max_err_y_state=errs,
+                       err_measure="max |d| / (atol + rtol |plain|), plain "
+                                   "in float64",
+                       err_value=ratio, tol=[atol, rtol], ok=ok,
+                       vs_plain_same_dtype={"max_err_y_state": errs32,
+                                            "err_value": ratio32},
+                       plain_same_dtype_vs_float64=ratio_plain,
+                       kernel_ms=cuda_ms(case["kernel"], 10 if main else 5),
+                       plain_ms=cuda_ms(case["plain"], 3),
+                       library_ms=None, library=SSD_LIBRARY,
+                       bound_ms=case["bound"][0], bound_by=case["bound"][1])
+            results.append(row)
+            if not ok:
+                failures.append(f"ssd_scan/{label}/{row['dtype']}: errors "
+                                f"{errs}, {ratio} of the tolerance")
+            del case, out, plain, exact
+            torch.cuda.empty_cache()
+    # a differentiated call would cut the gradient: the wrapper refuses it
+    case = ssd_case(2, 64, 4, 16, 1, 16, 16, torch.float32, 299)
+    x, dt, A, B, C = case["args"]
+    try:
+        ops.ssd_scan(x.clone().requires_grad_(True), dt, A, B, C, chunk=16)
+        refused = False
+    except RuntimeError as e:
+        refused = "forward-only" in str(e)
+    if not refused:
+        failures.append("ssd_scan ran a differentiated call")
+    emit({"phase": "kernels", "kernel": "ssd_scan", "gpu": gpu,
+          "refuses_autograd": refused, "kernels": results})
+    if failures:
+        raise SystemExit("ssd_scan disagrees with its plain version: "
                          + "; ".join(failures))
     return results
 
@@ -1399,12 +1536,251 @@ def phase_pipeline(gpu: str, n_layers: int, device="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: Mamba2 (SSM) through the PipelineRL loop
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_ssd():
+    """Route the model's SSD scan through its plain version, on the card,
+    for one comparison."""
+    from repro_torch.kernels import ops, ref
+    saved = ops.ssd_scan
+    ops.ssd_scan = ref.ssd_scan_ref
+    try:
+        yield
+    finally:
+        ops.ssd_scan = saved
+
+
+def phase_ssm(gpu: str, n_layers: int, device="cuda") -> dict:
+    """This slice's path on `device` (the card; a CPU run rehearses the
+    phase's logic at a reduced config and measures nothing): PipelineRL on
+    mamba2-2.7b, the engine serving in plain PyTorch, the Preprocessor's
+    forward through the `ssd_scan` kernel, the Trainer differentiating
+    the plain chunked SSD, and the streamed broadcast."""
+    import dataclasses
+
+    from repro_torch import (AdamConfig, EngineConfig, HardwareModel,
+                             PipelineConfig, PipelineRL, PreprocessConfig,
+                             Preprocessor, RLConfig, Trainer, get_config)
+    from repro_torch.core.weights import tree_bytes
+    from repro_torch.data.math_task import MathTask, Problem
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"), fused_loss=True,
+                              remat=True)
+    if n_layers != cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    dev = torch.device(device)
+    ec = EngineConfig(n_slots=16, max_len=512, prefill_chunk=64,
+                      temperature=1.0)
+    pc = PipelineConfig(batch_size=16, n_opt_steps=3, pack_rows=4,
+                        pack_seq=1024, n_engines=1, broadcast="streamed",
+                        broadcast_chunks=8)
+    rng = np.random.default_rng(0)
+
+    def source():
+        n = int(rng.integers(256, 385))
+        return Problem(rng.integers(3, cfg.vocab_size, n).tolist(), 0)
+
+    params = M.init_params(cfg, seed=0, device=dev)
+    trainer = Trainer(cfg, params, rl=RLConfig(), adam=AdamConfig(lr=1e-3),
+                      device=dev)
+    pre = Preprocessor(cfg, params, PreprocessConfig(kl_coef=0.05,
+                                                     max_len=ec.max_len),
+                       device=dev)
+    base = HardwareModel()
+    per_chip = ec.n_slots / (pc.n_chips - pc.train_chips)
+    hw = dataclasses.replace(base, bcast_bytes_per_flash=tree_bytes(params)
+                             / (PIPE_BCAST_STEPS * base.step_cost(per_chip)))
+    p = PipelineRL(cfg, params, MathTask(), ec, pc, hw=hw, trainer=trainer,
+                   preprocessor=pre, prompt_source=source, device=dev)
+    eng = p.engine
+
+    # instrument the engine, the Preprocessor and the trainer (timing and
+    # counters only)
+    step_s, step_wall, pre_calls, chunk_ms = [], [], [], []
+    refill_s = [0.0]
+    raw_step, raw_train, raw_ref = eng.step, trainer.step, pre._ref_logprobs
+    raw_refill = eng.refill
+
+    def timed_step(*a, **k):
+        t0 = time.perf_counter()
+        done = raw_step(*a, **k)
+        step_s.append(time.perf_counter() - t0)
+        return done
+
+    def timed_refill(*a, **k):
+        n_inv = eng.prefill_invocations
+        t0 = time.perf_counter()
+        n = raw_refill(*a, **k)
+        _sync(dev)
+        dt_s = time.perf_counter() - t0
+        refill_s[0] += dt_s
+        if eng.prefill_invocations > n_inv:
+            chunk_ms.append(dt_s * 1e3 / (eng.prefill_invocations - n_inv))
+        return n
+
+    def timed_ref(tokens, *a, **k):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = raw_ref(tokens, *a, **k)
+        _sync(dev)
+        pre_calls.append({"rows": int(tokens.shape[0]),
+                          "bucket": int(tokens.shape[1]),
+                          "ms": (time.perf_counter() - t0) * 1e3})
+        return out
+
+    def timed_train(*a, **k):
+        _sync(dev)
+        t0 = time.perf_counter()
+        m = raw_train(*a, **k)
+        _sync(dev)
+        step_wall.append({"train_ms": (time.perf_counter() - t0) * 1e3,
+                          "at_s": time.perf_counter() - t_start})
+        return m
+
+    actor = p.actors[0]
+    seen, raw_deliver = [], actor.deliver
+
+    def kept_deliver(rollouts, t):
+        seen.extend(rollouts)
+        raw_deliver(rollouts, t)
+
+    eng.step, trainer.step, pre._ref_logprobs = timed_step, timed_train, \
+        timed_ref
+    eng.refill = timed_refill
+    actor.deliver = kept_deliver
+    ops.reset_launches()
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t_start = time.perf_counter()
+    log = p.run()
+    _sync(dev)
+    run_s = time.perf_counter() - t_start
+    launches = dict(ops.launches)
+    tokens = eng.tokens_generated
+    peak_gb = (torch.cuda.max_memory_allocated(dev) / 2**30
+               if dev.type == "cuda" else None)
+    eng.step, trainer.step, pre._ref_logprobs = raw_step, raw_train, raw_ref
+    eng.refill = raw_refill
+    actor.deliver = raw_deliver
+
+    # --- checks on what came out
+    bad = []
+    steps = [{"version": r["version"], "wall_s": w["at_s"],
+              "train_ms": w["train_ms"], "sim_time": r["time"],
+              "reward": r["reward"], "ess": r["ess"], "max_lag": r["max_lag"],
+              "loss": r["loss"]} for r, w in zip(log, step_wall)]
+    if [r["version"] for r in log] != [1, 2, 3]:
+        bad.append(f"optimizer steps {[r['version'] for r in log]}")
+    if not all(np.isfinite(r["loss"]) for r in log):
+        bad.append(f"losses {[r['loss'] for r in log]}")
+    bs = p.broadcast_stats()
+    if eng.version < 1 or bs["engines"][0]["streams_completed"] < 1:
+        bad.append(f"engine version {eng.version}, broadcast {bs}")
+    stamps_ok = all((np.diff(r.weight_versions) >= 0).all() for r in seen)
+    if not stamps_ok:
+        bad.append("a rollout's version stamps decrease")
+    lp_ok = all(np.isfinite(r.behavior_logprobs).all()
+                and (r.behavior_logprobs[r.prompt_len:] <= 0).all()
+                for r in seen)
+    if not seen or not lp_ok:
+        bad.append(f"behavior logprobs of {len(seen)} rollouts not finite "
+                   f"and <= 0")
+    versions = sorted({int(v) for r in seen
+                       for v in r.weight_versions[r.prompt_len:]})
+    # the scan kernel runs once per layer in every Preprocessor forward
+    # whose bucket is a multiple of the chunk (ssm_forward's gate)
+    gated = sum(c["bucket"] % cfg.ssm_chunk == 0 for c in pre_calls)
+    want = {"ssd_scan": cfg.n_layers * gated,
+            "fused_logprob_fwd": len(pre_calls) + len(step_wall),
+            "fused_logprob_bwd": len(step_wall)}
+    for name, n in want.items():
+        if launches[name] != n:
+            bad.append(f"{name}: {launches[name]} launches, expected {n}")
+    if not gated:
+        bad.append(f"no Preprocessor call took the scan kernel: {pre_calls}")
+    attn = {k: launches[k] for k in ("flash_decode", "flash_decode_paged",
+                                     "prefill_attention", "flash_attention")}
+    if any(attn.values()):
+        bad.append(f"attention kernels launched on an attention-free model: "
+                   f"{attn}")
+
+    # --- the Preprocessor's reference logprobs on one batch through the
+    # kernel, against the same with the plain scan (on copies: `process`
+    # writes its results into the rollouts)
+    batch = seen[:pc.batch_size]
+
+    def ref_logprobs():
+        done = pre.process([dataclasses.replace(r) for r in batch])
+        return np.concatenate([r.ref_logprobs for r in done])
+
+    lp_k = ref_logprobs()
+    with plain_ssd():
+        lp_p = ref_logprobs()
+    d = lp_k - lp_p
+    check = {"rows": len(batch),
+             "rel_rms": float(np.linalg.norm(d) / np.linalg.norm(lp_p)),
+             "max_err": float(np.abs(d).max()), "tol_rel_rms": 5e-2}
+    check["ok"] = check["rel_rms"] <= 5e-2
+    if not check["ok"]:
+        bad.append(f"Preprocessor kernel against plain: {check}")
+    # one decode step of the running engine under the profiler
+    profile = _profile(lambda: eng.step(), dev) if dev.type == "cuda" \
+        else None
+    steady = step_s[1:]
+    res = {"phase": "ssm", "gpu": gpu, "config": cfg.name,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "ssm": {"heads": cfg.n_ssm_heads, "head_dim": cfg.ssm_head_dim,
+                   "groups": cfg.ssm_n_groups, "state": cfg.ssm_state,
+                   "chunk": cfg.ssm_chunk, "d_conv": cfg.d_conv},
+           "vocab": cfg.vocab_size,
+           "dtype": str(cfg.dtype).replace("torch.", ""),
+           "engine": dataclasses.asdict(ec),
+           "pipeline": {k: v for k, v in dataclasses.asdict(pc).items()
+                        if k != "health"},
+           "run_s": run_s, "opt_steps": steps, "rollouts": len(seen),
+           "rollout_versions": versions, "decode_steps": len(step_s),
+           "decode_step_ms_median": (statistics.median(steady) * 1e3
+                                     if steady else None),
+           "generated_tokens_per_s": tokens / sum(step_s),
+           "tokens_generated": tokens,
+           "decode_s": sum(step_s),
+           "prefill_invocations": eng.prefill_invocations,
+           "refill_s": refill_s[0],
+           "prefill_chunk_ms_median": (statistics.median(chunk_ms)
+                                       if chunk_ms else None),
+           "preprocess_calls": pre_calls,
+           "preprocess_ms_per_call": (statistics.median(
+               [c["ms"] for c in pre_calls]) if pre_calls else None),
+           "train_step_ms": [w["train_ms"] for w in step_wall],
+           "engine_version": eng.version,
+           "broadcast": {"pause_per_update":
+                         bs["engines"][0]["pause_per_update"],
+                         "streams_completed":
+                         bs["engines"][0]["streams_completed"],
+                         "published": bs["published"]},
+           "stamps_nondecreasing": stamps_ok, "peak_mem_gib": peak_gb,
+           "launches": launches, "expected_launches": want,
+           "preprocess_kernel_vs_plain": check, "profile": profile,
+           "failures": bad}
+    emit(res)
+    if bad:
+        raise SystemExit("ssm phase failed: " + "; ".join(bad))
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def summary(kernels: list, paths: dict, gpu: str) -> list:
     """One entry per kernel: its case at the main path's shapes in bfloat16
     and its launches on the path that runs it (the serve phase for the slot
     attention kernels, the train phase for the fused loss, the pipeline
-    phase for the paged decode). `paths` maps a phase to its result."""
+    phase for the paged decode, the ssm phase for the SSD scan). `paths`
+    maps a phase to its result."""
     out = []
     for name, (source, replaces, main_label, home) in KERNELS.items():
         rows = [r for r in kernels if r["name"] == name]
@@ -1435,6 +1811,11 @@ def summary(kernels: list, paths: dict, gpu: str) -> list:
     return out
 
 
+def release_memory() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -1445,6 +1826,8 @@ def main(argv=None) -> int:
                     help="granite-3-2b depth in the train phase")
     ap.add_argument("--pipeline-layers", type=int, default=40,
                     help="granite-3-2b depth in the pipeline phase")
+    ap.add_argument("--ssm-layers", type=int, default=64,
+                    help="mamba2-2.7b depth in the ssm phase")
     args = ap.parse_args(argv)
     phases = [p for p in args.only.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1467,16 +1850,23 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         kernels = phase_kernels(gpu)
         kernels += phase_fused(gpu, (torch.float32, torch.bfloat16))
+        kernels += phase_ssd(gpu)
     # each path runs with the launch counts set to 0 just before it and
-    # read just after (the phases reset and report them)
+    # read just after (the phases reset and report them). Between paths the
+    # cyclic garbage collector runs first: a PipelineRL's event loop holds
+    # reference cycles, and the device memory they keep is not released by
+    # empty_cache alone
     if "serve" in phases:
         paths["serve"] = phase_serve(gpu, args.layers)
-        torch.cuda.empty_cache()
+        release_memory()
     if "train" in phases:
         paths["train"] = phase_train(gpu, args.train_layers)
-        torch.cuda.empty_cache()
+        release_memory()
     if "pipeline" in phases:
         paths["pipeline"] = phase_pipeline(gpu, args.pipeline_layers)
+        release_memory()
+    if "ssm" in phases:
+        paths["ssm"] = phase_ssm(gpu, args.ssm_layers)
 
     emit({"kernels": summary(kernels, paths, gpu)})
     print(gpu, flush=True)

@@ -1,14 +1,15 @@
 """Architecture registry of the port: ``get_config("<arch-id>")`` for the
-dense GQA configs ported so far."""
+dense GQA and Mamba2 configs ported so far."""
 from __future__ import annotations
 
-from repro_torch.configs import granite_3_2b, llama3_8b, tiny
+from repro_torch.configs import granite_3_2b, llama3_8b, mamba2_2_7b, tiny
 from repro_torch.configs.base import ModelConfig, effective_cache_len, kv_cache_specs
 
 _MODULES = {
     "tiny": tiny,
     "llama3-8b": llama3_8b,
     "granite-3-2b": granite_3_2b,
+    "mamba2-2.7b": mamba2_2_7b,
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,8 +1,10 @@
-"""Model config for the PyTorch port: the dense-decoder fields of the JAX
-package's `ModelConfig`, under the same names, with a torch dtype.
+"""Model config for the PyTorch port: the dense-decoder and Mamba2 (SSM)
+fields of the JAX package's `ModelConfig`, under the same names, with a
+torch dtype.
 
-Only the dense GQA decoder is ported so far; the MLA, MoE, SSM and
-multimodal fields arrive with the slices that port those paths.
+`arch_type` admits "dense" (the GQA decoder) and "ssm" (attention-free
+Mamba2 / SSD layers); the MLA, MoE, hybrid and multimodal fields arrive
+with the slices that port those paths.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str  # only "dense" is ported
+    arch_type: str  # dense | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -28,6 +30,13 @@ class ModelConfig:
     rope_theta: float = 10000.0
     attention_variant: str = "full"  # full | sliding_window (decode ring buffer)
     sliding_window: int = 8192
+    # SSM (Mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_n_groups: int = 1
+    ssm_chunk: int = 64
+    ssm_head_dim: int = 64
+    d_conv: int = 4
+    expand: int = 2
     # numerics
     dtype: torch.dtype = torch.bfloat16
     norm_eps: float = 1e-6
@@ -43,9 +52,32 @@ class ModelConfig:
     fused_loss: bool = False
     source: str = ""
 
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.arch_type == "ssm"
+
+    @property
+    def has_attention(self) -> bool:
+        return self.arch_type != "ssm"
+
+    @property
+    def has_ssm(self) -> bool:
+        return self.arch_type in ("ssm", "hybrid")
+
 
 def effective_cache_len(cfg: ModelConfig, seq_len: int) -> int:
-    """Ring-buffer cache length actually allocated for a decode shape."""
+    """Ring-buffer cache length actually allocated for a decode shape (0
+    for an attention-free config)."""
+    if not cfg.has_attention:
+        return 0
     if cfg.attention_variant == "sliding_window" or seq_len > 65536:
         # long-context decode uses the sliding-window ring buffer
         return min(seq_len, cfg.sliding_window)
@@ -54,10 +86,24 @@ def effective_cache_len(cfg: ModelConfig, seq_len: int) -> int:
 
 def kv_cache_specs(cfg: ModelConfig, batch: int,
                    cache_len: int) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """(shape, dtype) of each decode-state leaf, stacked over layers."""
-    cl = effective_cache_len(cfg, cache_len)
-    shape = (cfg.n_layers, batch, cl, cfg.n_kv_heads, cfg.d_head)
-    return {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
+    """(shape, dtype) of each decode-state leaf, stacked over layers: the
+    attention cache `k`, `v` (L,B,CL,KV,Dh), and the SSM state `conv`
+    (L,B,d_conv-1,d_inner+2GN) in the model dtype and `ssd` (L,B,H,P,N)
+    in float32."""
+    L = cfg.n_layers
+    s: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
+    if cfg.has_attention:
+        cl = effective_cache_len(cfg, cache_len)
+        shape = (L, batch, cl, cfg.n_kv_heads, cfg.d_head)
+        s["k"] = (shape, cfg.dtype)
+        s["v"] = (shape, cfg.dtype)
+    if cfg.has_ssm:
+        s["conv"] = ((L, batch, cfg.d_conv - 1,
+                      cfg.d_inner + 2 * cfg.ssm_n_groups * cfg.ssm_state),
+                     cfg.dtype)
+        s["ssd"] = ((L, batch, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                     cfg.ssm_state), torch.float32)
+    return s
 
 
 def paged_layout(cfg: ModelConfig, cache_len: int,
@@ -80,10 +126,20 @@ def paged_cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
     """(shape, dtype) of each paged decode-state leaf: the attention leaves
     become page pools (L, n_pages, page_size, KV, Dh), one physical page
     spanning every layer, so one host integer per logical block addresses
-    both leaves. The (batch, n_blocks) block table lives on the host."""
-    ps, _ = paged_layout(cfg, cache_len, page_size)
-    shape = (cfg.n_layers, n_pages, ps, cfg.n_kv_heads, cfg.d_head)
-    return {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
+    both leaves. The (batch, n_blocks) block table lives on the host. SSM
+    leaves are O(1) per slot, with nothing to page, and keep the slot
+    layout of `kv_cache_specs`."""
+    s: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
+    if cfg.has_attention:
+        ps, _ = paged_layout(cfg, cache_len, page_size)
+        shape = (cfg.n_layers, n_pages, ps, cfg.n_kv_heads, cfg.d_head)
+        s["k"] = (shape, cfg.dtype)
+        s["v"] = (shape, cfg.dtype)
+    if cfg.has_ssm:
+        s.update({k: v for k, v in kv_cache_specs(cfg, batch,
+                                                  cache_len).items()
+                  if k in ("conv", "ssd")})
+    return s
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,7 +20,9 @@ addressed through a ref-counted block table (`kernels/paged_cache.py`):
 admission is costed in pages, a GRPO group's identical prompts are
 prefilled once and forked copy-on-write, and page exhaustion preempts the
 least-progressed slot. The slot engine stays the oracle that paged
-rollouts match bit for bit.
+rollouts match bit for bit. An attention-free (SSM) config has nothing to
+page: it keeps O(1) conv and SSD state per slot and runs the slot state
+machine under either setting, admission costing 0 pages.
 """
 from __future__ import annotations
 
@@ -114,13 +116,21 @@ def _admit_impl(st: Dict[str, Any], new_tokens, new_plen, new_ncached,
                 admit_mask) -> None:
     """Scatter fresh prompt rows into the engine state (in place). The only
     host-to-device traffic is the (H,T) prompt buffer and three (H,)
-    vectors. admit_mask: (H,) bool, True where a new prompt enters."""
+    vectors. admit_mask: (H,) bool, True where a new prompt enters. The
+    SSM state of refilled slots is zeroed in place: the attention cache is
+    masked by count, but recurrent state would carry a retired sequence
+    into the next."""
     m = admit_mask
     st["tokens"] = torch.where(m[:, None], new_tokens, st["tokens"])
     st["lp"] = torch.where(m[:, None], torch.zeros_like(st["lp"]), st["lp"])
     st["n_cached"] = torch.where(m, new_ncached, st["n_cached"])
     st["prompt_len"] = torch.where(m, new_plen, st["prompt_len"])
     st["active"] = st["active"] | m
+    for k in ("conv", "ssd"):
+        if k in st["cache"]:
+            leaf = st["cache"][k]                          # (L,H,...)
+            leaf.masked_fill_(m.reshape((1, -1) + (1,) * (leaf.dim() - 2)),
+                              0)
 
 
 def _engine_step(params, st: Dict[str, Any], cfg: ModelConfig,
@@ -172,7 +182,10 @@ def _recompute_impl(params, st: Dict[str, Any], cfg: ModelConfig) -> None:
     """Recompute the attention cache of every slot under `params` (the
     §5.1 ablation), in place. Entries at positions >= n_cached are garbage
     in both the old and the new cache (masked by count), so a full
-    overwrite is safe."""
+    overwrite is safe. Recurrent SSM state is not recomputed (nor is it in
+    the JAX package), so an attention-free config runs no forward at all."""
+    if "k" not in st["cache"]:
+        return
     H, T = st["tokens"].shape
     dev = st["tokens"].device
     positions = torch.arange(T, device=dev)[None].expand(H, T)
@@ -236,8 +249,9 @@ class GenerationEngine:
         self.generator.manual_seed(int(seed))
         # paged KV cache: page pool + block tables. The block table lives on
         # the host and is mirrored to the device once per change
-        # (`_bt_dirty`), not once per step.
-        self._paged = ec.cache == "paged"
+        # (`_bt_dirty`), not once per step. An attention-free config has
+        # nothing to page and runs the slot state machine.
+        self._paged = ec.cache == "paged" and cfg.has_attention
         self.allocator: Optional[PageAllocator] = None
         self.tables: Optional[BlockTables] = None
         self._bt: Optional[torch.Tensor] = None
@@ -276,19 +290,21 @@ class GenerationEngine:
         self._host_active = np.zeros(H, bool)
         self._host_ncached = np.zeros(H, np.int64)
         self._host_prompt_len = np.ones(H, np.int64)
-        # attention cache length; a ring buffer when < T. Paged leaves are
-        # (L,NP,PS,...) pools, so the logical length comes from the layout.
+        # attention cache length (None for an attention-free config); a
+        # ring buffer when < T. Paged leaves are (L,NP,PS,...) pools, so the
+        # logical length comes from the layout.
+        self._cache_len: Optional[int] = None
         if self._paged:
             self._cache_len = self.tables.n_blocks * self.allocator.page_size
             assert self._cache_len == effective_cache_len(cfg, T)
-        else:
+        elif cfg.has_attention:
             self._cache_len = self.state["cache"]["k"].shape[2]
         # the effective chunk divides T (chunk windows never cross the
         # token buffer end), the cache length (ring writes stay contiguous)
         # and, paged, the page size (a chunk lands in one logical block)
         chunk = max(int(ec.prefill_chunk), 0)
         if chunk:
-            cl = self._cache_len
+            cl = self._cache_len or T
             ps = self.allocator.page_size if self._paged else cl
             chunk = min(chunk, T, cl, ps)
             while T % chunk or cl % chunk or ps % chunk:

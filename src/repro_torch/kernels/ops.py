@@ -15,6 +15,8 @@ and 16-byte aligned data; they have no backward (neither have the Pallas
 kernels), so on the card they refuse inputs that autograd would
 differentiate rather than cut the gradient silently. `fused_logprob` is a
 `torch.autograd.Function` whose forward and backward are kernels.
+`ssd_scan` is forward-only like the attention kernels (the Pallas kernel has
+no backward either).
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from repro_torch.kernels import ref
 
 launches: Dict[str, int] = {"flash_decode": 0, "flash_decode_paged": 0,
                             "prefill_attention": 0, "flash_attention": 0,
-                            "fused_logprob_fwd": 0, "fused_logprob_bwd": 0}
+                            "fused_logprob_fwd": 0, "fused_logprob_bwd": 0,
+                            "ssd_scan": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448        # bytes of shared memory a block may use on sm_90
@@ -81,13 +84,15 @@ def _check(name: str, tensors: Dict[str, torch.Tensor], rows: int, dk: int,
 
 
 def _forward_only(name: str, *tensors: torch.Tensor) -> None:
-    """The attention kernels have no backward: a differentiated call would
-    return an output with no autograd history and cut the gradient."""
+    """The attention kernels and `ssd_scan` have no backward: a
+    differentiated call would return an output with no autograd history and
+    cut the gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: the CUDA kernel is forward-only, and an input requires "
-            f"grad; run it under torch.no_grad() (training attention on "
-            f"packed batches takes the plain path, models/attention.py)")
+            f"grad; run it under torch.no_grad() (training takes the plain "
+            f"paths: packed-batch attention in models/attention.py, the "
+            f"chunked SSD in models/ssm.py)")
 
 
 def _raise_on(name: str, err: int) -> None:
@@ -456,3 +461,85 @@ def fused_logprob(hidden, head, targets, *, transpose_head: bool = False,
         raise ValueError(f"fused_logprob: unsupported device {hidden.device}")
     return _FusedLogprob.apply(hidden, head, targets, bool(transpose_head),
                                int(dw_chunks))
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan
+# ---------------------------------------------------------------------------
+
+def _ssd_smem_bytes(chunk: int, p: int, n: int) -> int:
+    """Shared memory of one ssd_scan block (csrc/ssd_scan.cu): the (N,P)
+    state, B (padded rows), C, dt*x and the scores, all float32."""
+    return 4 * (n * p + chunk * (n + 1) + chunk * n + chunk * p
+                + chunk * chunk + 4 * chunk)
+
+
+def _ssd_check(x, dt, A, B, C, chunk: int) -> None:
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B.dim() != 4:
+        raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(B.shape)}")
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if (tuple(dt.shape) != (b, l, h) or tuple(A.shape) != (h,)
+            or tuple(B.shape[:2]) != (b, l) or C.shape != B.shape or g < 1
+            or h % g or chunk < 1 or l % chunk or p % 8 or n % 8):
+        raise ValueError(
+            f"ssd_scan: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
+            f"{tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}, "
+            f"chunk {chunk}: need l % chunk == 0, h % g == 0 and P, N "
+            f"multiples of 8")
+    if x.dtype not in _DTYPE_CODE or B.dtype != x.dtype \
+            or C.dtype != x.dtype:
+        raise TypeError(f"ssd_scan: x {x.dtype}, B {B.dtype}, C {C.dtype}; "
+                        f"all float32 or all bfloat16")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(f"ssd_scan: dt {dt.dtype}, A {A.dtype}; both "
+                        f"float32")
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 64):
+    """Mamba2 SSD chunked scan: the intra-chunk attention form and the
+    inter-chunk state recurrence. x: (b,l,h,p); dt: (b,l,h) float32
+    (softplus'd); A: (h,) float32, negative; B, C: (b,l,g,n), head h
+    reading group h // (h/g); l % chunk == 0, P and N multiples of 8.
+    Returns y (b,l,h,p) in x's dtype and the final state (b,h,n,p)
+    float32. x, B and C may be strided views (the model passes slices of
+    one conv output); their last dim must be contiguous. The recurrence
+    is reassociated across chunks: equal to `ref.ssd_scan_ref` to float32
+    tolerance, not bitwise."""
+    chunk = int(chunk)
+    _ssd_check(x, dt, A, B, C, chunk)
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    _forward_only("ssd_scan", x, dt, A, B, C)
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    for tn, t in (("dt", dt), ("A", A), ("B", B), ("C", C)):
+        if t.device != x.device:
+            raise ValueError(f"ssd_scan: {tn} on {t.device}, expected "
+                             f"{x.device}")
+    for tn, t in (("x", x), ("B", B), ("C", C)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"ssd_scan: {tn} strides {t.stride()} need a "
+                             f"contiguous last dim")
+    if _ssd_smem_bytes(chunk, p, n) > _SMEM_LIMIT:
+        raise ValueError(f"ssd_scan: chunk {chunk}, P {p}, N {n} exceed the "
+                         f"block's shared memory")
+    A = A.contiguous()
+    y = torch.empty((b, l, h, p), dtype=x.dtype, device=x.device)
+    state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
+    strides = (ctypes.c_longlong * 12)(
+        *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3])
+    fn = _lib("ssd_scan", "repro_ssd_scan",
+              [_i] + [_vp] * 7 + [_i] * 7 + [_vp, _vp])
+    with torch.cuda.device(x.device):
+        err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(),
+                 A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
+                 state.data_ptr(), b, l, h, p, g, n, chunk,
+                 ctypes.cast(strides, ctypes.c_void_p), _stream(x))
+    _raise_on("ssd_scan", err)
+    launches["ssd_scan"] += 1
+    return y, state

@@ -6,6 +6,8 @@ back to q's dtype (the Pallas kernels do the same, `flash_attention.py:41-43`,
 are -1e30, as in the JAX package. The fused lm-head loss has two: the
 full-logits oracle `fused_logprob_ref` and the vocab-blocked twin
 `fused_logprob_blocked`, which sums the logits in float32 as the kernels do.
+The SSD scan's is `ssd_scan_ref`, the model's chunked SSD with the kernel's
+calling convention.
 
 The wrappers in `kernels/ops.py` run these on CPU tensors; on the card
 they are the reference the CUDA kernels are held against.
@@ -231,3 +233,15 @@ def fused_logprob_blocked(hidden, head, targets, *,
     assert hidden.dim() == 2 and head.dim() == 2 and targets.dim() == 1
     return _Blocked.apply(hidden, head, targets, bool(transpose_head),
                           int(block_v), int(dw_chunks))
+
+
+def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 64):
+    """The plain `ssd_scan`: x (b,l,h,p); dt (b,l,h) float32 (softplus'd);
+    A (h,) float32, negative; B, C (b,l,g,n), head h reading group
+    h // (h/g). Returns y (b,l,h,p) in x's dtype and the final state
+    (b,h,n,p) float32, the layout the kernel emits (the model's chunked
+    SSD keeps (b,h,p,n))."""
+    # imported here: models.ssm imports kernels.ops, which imports this
+    from repro_torch.models.ssm import ssd_chunked
+    y, state = ssd_chunked(x, dt, A, B, C, chunk)
+    return y, state.transpose(-1, -2)

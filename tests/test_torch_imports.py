@@ -36,6 +36,8 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
+print("SSM", "repro_torch.models.ssm" in sys.modules,
+      "repro_torch.configs.mamba2_2_7b" in sys.modules)
 print("BAD", bad)
 """
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)],
@@ -43,7 +45,8 @@ print("BAD", bad)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n_loaded = int(out.stdout.split("LOADED ")[1].split()[0])
-    assert n_loaded >= 28
+    assert n_loaded >= 30
+    assert "SSM True True" in out.stdout, out.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

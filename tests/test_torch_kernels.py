@@ -210,7 +210,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert ops.launches == before
     assert set(ops.launches) == {"flash_decode", "flash_decode_paged",
                                  "prefill_attention", "flash_attention",
-                                 "fused_logprob_fwd", "fused_logprob_bwd"}
+                                 "fused_logprob_fwd", "fused_logprob_bwd",
+                                 "ssd_scan"}
 
 
 def test_unsupported_device_raises():
