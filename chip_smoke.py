@@ -15,13 +15,19 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
 1. env: versions of Python, torch, CUDA, nvcc and the driver.
 2. build: nvcc builds every kernel from `src/repro_torch/kernels/csrc/`
    into `build/repro_torch/` (seconds, and ptxas's register and spill
-   report).
+   report, with any wgmma serialisation it warns of).
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    in float32 and bfloat16. Attention at the llama3-8b serving shapes (H=32,
    KV=8, D=128, B=16, CL=1024, C=128) and at awkward shapes (D=64 and D=32,
    ragged lengths, a ring cache wrapped twice, offset 0, S not a multiple
    of 128, Dk != Dv), max abs error against 2e-5 (float32) or 2e-2
-   (bfloat16), with `scaled_dot_product_attention` as the library call.
+   (bfloat16), with `scaled_dot_product_attention` as the library call;
+   also at granite-3-2b's shapes: `prefill_attention` at the pipeline
+   phase's admission chunk (B=16, C=64, CL=512, D=64, offset 320) and
+   `flash_attention` at the dense Preprocessor's forward (B=16, S=512,
+   D=64). Each row names the kernel its dtype took (`route`): bfloat16
+   prefill/flash attention on the tensor cores ("wgmma"), float32 and the
+   other kernels on the CUDA cores ("cuda-core").
    The paged decode at the pipeline phase's shapes (granite-3-2b heads,
    CL 512, page 64) and at llama3-8b's (B=16, CL=1024, lengths 773-1017,
    pages of 16 and 64) on a shuffled block table over a pool larger than
@@ -236,7 +242,8 @@ def phase_build(gpu: str) -> None:
         log = build.lib_path(name).with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
         report[name] = [ln.split("ptxas info    : ")[-1] for ln in lines
-                        if "registers" in ln or "spill" in ln]
+                        if "registers" in ln or "spill" in ln
+                        or "Performance Loss" in ln]
     emit({"phase": "build", "gpu": gpu, "seconds": seconds,
           "wall_s": time.perf_counter() - t0, "ptxas": report})
 
@@ -445,6 +452,9 @@ def kernel_cases(dtype):
          lambda: prefill_case(2, 4, 8, 2, 32, 64, 64, 36, dtype, 8)),
         ("prefill_attention", "ragged-rows-mla-dk80-dv64",
          lambda: prefill_case(2, 12, 6, 1, 48, 80, 64, 40, dtype, 9)),
+        # granite-3-2b's admission chunk in the pipeline phase
+        ("prefill_attention", "pipeline",
+         lambda: prefill_case(16, 64, 32, 8, 512, 64, 64, 320, dtype, 18)),
         ("flash_attention", "serve",
          lambda: flash_case(16, 32, 8, 1024, 128, dtype, 10)),
         ("flash_attention", "s200-d64",
@@ -453,6 +463,9 @@ def kernel_cases(dtype):
          lambda: flash_case(1, 4, 4, 77, 32, dtype, 12)),
         ("flash_attention", "s300-window64",
          lambda: flash_case(1, 4, 2, 300, 64, dtype, 13, window=64)),
+        # granite-3-2b's dense Preprocessor forward (bucket 512)
+        ("flash_attention", "preprocess",
+         lambda: flash_case(16, 32, 8, 512, 64, dtype, 19)),
     ]
 
 
@@ -551,6 +564,7 @@ def _max_err(out, exp) -> tuple:
 
 
 def phase_fused(gpu: str, dtypes) -> list:
+    from repro_torch.kernels import ops
     results, failures = [], []
     for dtype in dtypes:
         for seed, (label, args) in enumerate(fused_cases()):
@@ -565,6 +579,7 @@ def phase_fused(gpu: str, dtypes) -> list:
                 iters = 3 if big else 5
                 row = dict(name=name, label=label, shape=shape,
                            dtype=str(dtype).replace("torch.", ""),
+                           route=ops.route(name, dtype),
                            max_err=err, ref_max_abs=scale,
                            err_measure="max_abs / ref_max_abs" if c["rel"]
                            else "max_abs", err_value=rel, tol=c["tol"], ok=ok,
@@ -589,6 +604,10 @@ def phase_fused(gpu: str, dtypes) -> list:
 
 
 def phase_kernels(gpu: str) -> list:
+    """Each attention kernel's cases against their plain versions, in
+    float32 and bfloat16; every row names the kernel the dtype took
+    (`ops.route`)."""
+    from repro_torch.kernels import ops
     results, failures = [], []
     for dtype in (torch.float32, torch.bfloat16):
         for name, label, make in kernel_cases(dtype):
@@ -598,9 +617,10 @@ def phase_kernels(gpu: str) -> list:
             torch.cuda.synchronize()
             err = float((out.float() - exp.float()).abs().max())
             ok = bool(torch.isfinite(out).all()) and err <= TOL[dtype]
-            iters = 20 if label in ("serve", "pipeline") else 5
+            iters = 20 if label in ("serve", "pipeline", "preprocess") else 5
             row = dict(name=name, label=label, shape=case["shape"],
-                       dtype=str(dtype).replace("torch.", ""), max_err=err,
+                       dtype=str(dtype).replace("torch.", ""),
+                       route=ops.route(name, dtype), max_err=err,
                        tol=TOL[dtype], ok=ok,
                        kernel_ms=cuda_ms(case["kernel"], iters),
                        plain_ms=cuda_ms(case["plain"], max(iters // 4, 2)),
@@ -726,7 +746,7 @@ def phase_ssd(gpu: str) -> list:
             main = label in ("preprocess", "train-shape")
             row = dict(name="ssd_scan", label=label, shape=case["shape"],
                        dtype=str(dtype).replace("torch.", ""),
-                       max_err=max(errs), max_err_y_state=errs,
+                       route=ops.route("ssd_scan", dtype), max_err=max(errs), max_err_y_state=errs,
                        err_measure="max |d| / (atol + rtol |plain|), plain "
                                    "in float64",
                        err_value=ratio, tol=[atol, rtol], ok=ok,
@@ -1793,6 +1813,7 @@ def summary(kernels: list, paths: dict, gpu: str) -> list:
                  "launches_by_phase": by_phase, "gpu": gpu}
         if main_row is not None:
             entry.update(
+                core=main_row["route"],
                 max_abs_err=main_row["max_err"], ms=main_row["kernel_ms"],
                 plain_ms=main_row["plain_ms"],
                 bound_ms=main_row["bound_ms"],
@@ -1802,7 +1823,8 @@ def summary(kernels: list, paths: dict, gpu: str) -> list:
             if "yardstick_ms" in main_row:
                 entry.update(yardstick_ms=main_row["yardstick_ms"],
                              yardstick=main_row["yardstick"])
-        entry["cases"] = [{k: r[k] for k in ("label", "dtype", "max_err",
+        entry["cases"] = [{k: r[k] for k in ("label", "dtype", "route",
+                                             "max_err",
                                              "err_measure", "err_value",
                                              "tol", "bitwise_vs_flash_decode",
                                              "ok") if k in r}

@@ -1,4 +1,7 @@
-// Shared machinery of the three attention kernels: one thread block owns
+// Shared machinery of the CUDA-core attention kernels (flash_decode,
+// flash_decode_paged, and the float32 builds of prefill_attention and
+// flash_attention; their bfloat16 builds run on the tensor cores, see
+// attention_tc.cuh): one thread block owns
 // R query rows that all read the same KV head, keeps their online-softmax
 // state (running max m, denominator l, numerator acc) in shared memory in
 // float32, and streams the keys through shared memory in tiles of kBlockK.
@@ -9,7 +12,7 @@
 // once to the output type.
 //
 // Simple on purpose: plain FMA on CUDA cores, synchronous 16-byte loads,
-// no tensor cores and no copy/compute overlap. wgmma and TMA come later.
+// no tensor cores and no copy/compute overlap.
 #pragma once
 
 #include <cuda_bf16.h>

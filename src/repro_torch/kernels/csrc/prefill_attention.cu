@@ -6,22 +6,33 @@
 // src/repro/kernels/prefill_attention.py.
 //
 // What bounds it on the H100: in the cache-prefix pass, the bytes of K/V
-// read. A block serves R query rows of one KV head, so it does 2 * R * D
-// FLOPs per key against 2 * D elements, and the whole grid reads the
-// valid prefix once per query tile.
+// read. A block serves 128 flattened query rows of one KV head, so it does
+// 2 * 128 * D FLOPs per key against 2 * D elements, and the grid reads the
+// valid prefix once per query tile; at the serving shape the bound is the
+// bytes, with the FLOPs close behind (the tensor cores' bf16 rate).
 //
-// Design: one block per (query tile of R flattened (chunk position, rep)
-// rows, KV head, row b); the rows of a tile share every K/V tile. The
-// cache pass loops only over slots below min(offset, CL), the write
-// frontier (the Pallas version needed a static grid hint for that), with
-// the floor-mod ring rule as the mask; the chunk pass loops only up to the
-// tile's last causal key. Caches are read in place through their strides:
-// no transposed copy. Dk and Dv are separate so that MLA's absorbed
-// prefill (KV = 1, Dk != Dv) can reuse the kernel.
+// Design. bfloat16 runs on the tensor cores (attention_tc.cuh): one block
+// per (query tile of 128 flattened (chunk position, rep) rows, KV head,
+// row b), two consumer warpgroups of 64 rows doing S = Q K^T and O += P V
+// with wgmma, and a producer warp that streams 64-key K/V tiles by TMA
+// through a ring of shared-memory stages, so every row of the tile shares
+// each K/V tile and loads overlap compute. The cache pass streams only
+// slots below min(offset, CL), the write frontier, with the floor-mod ring
+// rule as the mask; the chunk pass streams up to the tile's last causal
+// key. Tiles wholly inside the mask skip it, and a warpgroup skips a tile
+// masked for all its rows. Caches and chunk K/V are read in place through
+// their strides by the tensor maps: no copy. Dk and Dv are separate so that
+// MLA's absorbed prefill (KV = 1, Dk != Dv) can reuse the kernel.
+//
+// float32, the kernels' check dtype, keeps the CUDA-core kernel of
+// attention_common.cuh (float32 FMAs from shared memory): TF32 would miss
+// its tolerance.
 #include "attention_common.cuh"
+#include "attention_tc.cuh"
 
 namespace repro {
 
+// float32: the CUDA-core kernel, R flattened rows per block.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 prefill_attention_kernel(
@@ -83,37 +94,156 @@ prefill_attention_kernel(
   });
 }
 
-template <typename T>
-cudaError_t run(const void* q, const void* kc, const void* vc,
-                const void* kh, const void* vh, void* out, int B, int C,
-                int KV, int rep, int CL, int dk, int dv, int offset,
-                float scale, int R, const long long* st, void* stream) {
+cudaError_t run_f32(const float* q, const float* kc, const float* vc,
+                    const float* kh, const float* vh, float* out, int B,
+                    int C, int KV, int rep, int CL, int dk, int dv,
+                    int offset, float scale, int R, const long long* st,
+                    void* stream) {
   const dim3 grid((C * rep + R - 1) / R, KV, B);
-  return launch(prefill_attention_kernel<T>, grid, smem_bytes(R, dk, dv),
-                stream, (const T*)q, (const T*)kc, (const T*)vc,
-                (const T*)kh, (const T*)vh, (T*)out, C, rep, CL, dk, dv,
-                offset, scale, R, st[0], st[1], st[2], st[3], st[4], st[5],
-                st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13],
-                st[14], st[15], st[16], st[17]);
+  return launch(prefill_attention_kernel<float>, grid, smem_bytes(R, dk, dv),
+                stream, q, kc, vc, kh, vh, out, C, rep, CL, dk, dv, offset,
+                scale, R, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+                st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14],
+                st[15], st[16], st[17]);
 }
 
+namespace tc {
+
+// bfloat16: the tensor-core kernel. PK, NV: 64-column panels of Dk, Dv.
+template <int PK, int NV>
+__global__ void __launch_bounds__(kThreads, 1)
+prefill_attention_tc(const __grid_constant__ CUtensorMap tkc,
+                     const __grid_constant__ CUtensorMap tvc,
+                     const __grid_constant__ CUtensorMap tkh,
+                     const __grid_constant__ CUtensorMap tvh,
+                     const bf16* __restrict__ q, bf16* __restrict__ out,
+                     int C, int rep, int CL, int dk, int dv, int offset,
+                     float scale_log2, int stages, long long q_sb,
+                     long long q_sc, long long q_sh, long long o_sb,
+                     long long o_sc, long long o_sh) {
+  extern __shared__ uint8_t smem_raw[];
+  const Smem sm = carve(smem_raw, PK, NV, stages);
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int g = blockIdx.y, b = blockIdx.z;
+  const int nrows = min(kRows, C * rep - row0);
+  // flattened row = ci * rep + r: chunk position ci, query head g * rep + r
+  auto pos = [&](int i) { return (row0 + i) / rep; };
+  auto head = [&](int i) { return g * rep + (row0 + i) % rep; };
+  const int n_cache = min(offset, CL);  // slots below the write frontier
+  const int n_chunk = pos(nrows - 1) + 1;
+  const int t_cache = (n_cache + kKeys - 1) / kKeys;
+  const int ntiles = t_cache + (n_chunk + kKeys - 1) / kKeys;
+
+  setup(sm, dk, PK, nrows, stages, [&](int i) {
+    return q + b * q_sb + pos(i) * q_sc + head(i) * q_sh;
+  });
+
+  if (threadIdx.x >= 32 * kConsumerWarps) {
+    producer_regs();
+    if (threadIdx.x == 32 * kConsumerWarps)
+      produce(sm, PK, NV, stages, ntiles,
+              [&](int t, uint32_t k_dst, uint32_t v_dst, uint32_t bar) {
+                const bool cache = t < t_cache;
+                const int k0 = (cache ? t : t - t_cache) * kKeys;
+                const CUtensorMap* km = cache ? &tkc : &tkh;
+                const CUtensorMap* vm = cache ? &tvc : &tvh;
+                for (int p = 0; p < PK; ++p)
+                  tma_load(k_dst + p * kPanelBytes, km, bar, p * kPanel, k0,
+                           g, b);
+                for (int p = 0; p < NV; ++p)
+                  tma_load(v_dst + p * kPanelBytes, vm, bar, p * kPanel, k0,
+                           g, b);
+              });
+    return;
+  }
+
+  consumer_regs();
+  Consumer<PK, NV> c;
+  c.init();
+  // the warpgroup's chunk positions, and this thread's two rows'
+  const int w0 = c.wg * 64;
+  const bool idle = w0 >= nrows;
+  const int pmin = pos(w0), pmax = pos(min(w0 + 63, nrows - 1));
+  const int pos0 = pos(c.row()), pos1 = pos(c.row() + 8);
+  // slot j holds absolute position p_j (ring addressing); for a cache that
+  // has not wrapped (offset <= CL), p_j = j, valid iff j < offset and the
+  // query is less than CL positions ahead
+  const bool flat = offset <= CL;
+  c.run(
+      sm, ntiles, stages, scale_log2,
+      [&](int t) {
+        if (idle) return 0;
+        if (t < t_cache) {
+          const int k0 = t * kKeys;
+          if (flat && offset + pmin - (k0 + kKeys - 1) >= CL) return 0;
+          return flat && k0 + kKeys <= n_cache && offset + pmax - k0 < CL
+                     ? 1 : 2;
+        }
+        const int k0 = (t - t_cache) * kKeys;
+        return k0 > pmax ? 0 : k0 + kKeys - 1 <= pmin ? 1 : 2;
+      },
+      [&](int t, int i, int jj) {
+        const int pi = i ? pos1 : pos0;
+        if (t >= t_cache) return (t - t_cache) * kKeys + jj <= pi;
+        const int j = t * kKeys + jj;
+        const int p_j = (offset - 1) - floor_mod(offset - 1 - j, CL);
+        return j < n_cache && p_j >= 0 && offset + pi - p_j < CL;
+      });
+  c.store(nrows, dv, [&](int r) {
+    return out + b * o_sb + pos(r) * o_sc + head(r) * o_sh;
+  });
+}
+
+template <int PK, int NV>
+int run(const void* q, const void* kc, const void* vc, const void* kh,
+        const void* vh, void* out, int B, int C, int KV, int rep, int CL,
+        int dk, int dv, int offset, float scale, const long long* st,
+        void* stream) {
+  CUtensorMap tkc, tvc, tkh, tvh;
+  int err = make_map(&tkc, kc, dk, CL, KV, B, st[4], st[5], st[3]);
+  if (!err) err = make_map(&tvc, vc, dv, CL, KV, B, st[7], st[8], st[6]);
+  if (!err) err = make_map(&tkh, kh, dk, C, KV, B, st[10], st[11], st[9]);
+  if (!err) err = make_map(&tvh, vh, dv, C, KV, B, st[13], st[14], st[12]);
+  if (err) return err;
+  const Geometry geo = geometry(dk, dv);
+  const dim3 grid((C * rep + kRows - 1) / kRows, KV, B);
+  return launch(prefill_attention_tc<PK, NV>, grid, geo.smem, stream, tkc, tvc,
+                tkh, tvh, (const bf16*)q, (bf16*)out, C, rep, CL, dk, dv,
+                offset, scale * kLog2e, geo.stages, st[0], st[1], st[2],
+                st[15], st[16], st[17]);
+}
+
+}  // namespace tc
 }  // namespace repro
 
-// dtype: 0 = float32, 1 = bfloat16. strides: 18 element strides, in order
-// q (b, c, h), k_cache (b, slot, kv), v_cache (b, slot, kv),
-// k_chunk (b, c, kv), v_chunk (b, c, kv), out (b, c, h).
-// Returns the launch's cudaError_t.
+// dtype: 0 = float32 (the CUDA-core kernel, R flattened rows per block),
+// 1 = bfloat16 (the tensor-core kernel; R is not used). strides: 18
+// element strides, in order q (b, c, h), k_cache (b, slot, kv), v_cache
+// (b, slot, kv), k_chunk (b, c, kv), v_chunk (b, c, kv), out (b, c, h).
+// bfloat16 takes dk and dv multiples of 16 up to 256 and 16-byte aligned
+// rows (kernels/ops.py checks). Returns the launch's cudaError_t, or
+// tc::kMapError + a CUresult when a tensor map cannot be encoded.
 extern "C" int repro_prefill_attention(
     int dtype, const void* q, const void* kc, const void* vc, const void* kh,
     const void* vh, void* out, int B, int C, int KV, int rep, int CL, int dk,
     int dv, int offset, float scale, int R, const long long* strides,
     void* stream) {
+  using namespace repro;
   if (dtype == 0)
-    return repro::run<float>(q, kc, vc, kh, vh, out, B, C, KV, rep, CL, dk,
-                             dv, offset, scale, R, strides, stream);
-  if (dtype == 1)
-    return repro::run<__nv_bfloat16>(q, kc, vc, kh, vh, out, B, C, KV, rep,
-                                     CL, dk, dv, offset, scale, R, strides,
-                                     stream);
-  return (int)cudaErrorInvalidValue;
+    return (int)run_f32((const float*)q, (const float*)kc, (const float*)vc,
+                        (const float*)kh, (const float*)vh, (float*)out, B, C,
+                        KV, rep, CL, dk, dv, offset, scale, R, strides,
+                        stream);
+  if (dtype != 1 || dk % 16 || dv % 16 || dk > tc::kMaxDim ||
+      dv > tc::kMaxDim || dk <= 0 || dv <= 0)
+    return (int)cudaErrorInvalidValue;
+  // PK, NV: 64-column panels of dk, dv; TMA fills the columns past them
+  // with zeros
+  return tc::with_panels(
+      (dk + tc::kPanel - 1) / tc::kPanel, (dv + tc::kPanel - 1) / tc::kPanel,
+      [&](auto PK, auto NV) {
+        return tc::run<decltype(PK)::value, decltype(NV)::value>(
+            q, kc, vc, kh, vh, out, B, C, KV, rep, CL, dk, dv, offset, scale,
+            strides, stream);
+      });
 }

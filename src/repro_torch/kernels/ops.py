@@ -13,7 +13,11 @@ contiguous copies. The attention kernels need the last dimension
 contiguous, every other stride and the head dims a multiple of 16 bytes,
 and 16-byte aligned data; they have no backward (neither have the Pallas
 kernels), so on the card they refuse inputs that autograd would
-differentiate rather than cut the gradient silently. `fused_logprob` is a
+differentiate rather than cut the gradient silently. `prefill_attention`
+and `flash_attention` dispatch on the dtype (`route`): bfloat16 launches
+the tensor-core kernel (wgmma on TMA-fed tiles; head dims multiples of 16
+up to 256) and float32 the CUDA-core kernel; a bfloat16 shape the
+tensor-core kernel does not take raises. `fused_logprob` is a
 `torch.autograd.Function` whose forward and backward are kernels.
 `ssd_scan` is forward-only like the attention kernels (the Pallas kernel has
 no backward either).
@@ -36,7 +40,15 @@ launches: Dict[str, int] = {"flash_decode": 0, "flash_decode_paged": 0,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448        # bytes of shared memory a block may use on sm_90
 _BLOCK_K = 64               # keys per tile (csrc/attention_common.cuh)
-_ROWS = 32                  # query rows per block of prefill/flash attention
+_ROWS = 32                  # query rows per block of the float32 prefill/flash
+# the bfloat16 prefill/flash kernels on tensor cores (csrc/attention_tc.cuh):
+# 64-column panels of a head dim, 128 query rows and 64-key tiles per block,
+# a ring of at most 4 K/V stages, head dims multiples of 16 up to 256
+_TC_PANEL_BYTES = 64 * 128
+_TC_Q_PANEL_BYTES = 128 * 128
+_TC_MAX_STAGES = 4
+_TC_MAX_DIM = 256
+_TENSOR_CORE = ("prefill_attention", "flash_attention")
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
@@ -53,16 +65,51 @@ def _smem_bytes(rows: int, dk: int, dv: int) -> int:
                 + rows * _BLOCK_K + rows * dv + 3 * rows)
 
 
+def route(name: str, dtype: torch.dtype) -> str:
+    """The kernel a CUDA tensor of `dtype` takes in wrapper `name`: "wgmma"
+    (the tensor-core attention kernels, bfloat16) or "cuda-core"."""
+    return ("wgmma" if name in _TENSOR_CORE and dtype == torch.bfloat16
+            else "cuda-core")
+
+
+def _tc_geometry(dk: int, dv: int) -> tuple:
+    """(ring stages, shared-memory bytes) of a block of the tensor-core
+    attention kernels for head dims (dk, dv), as csrc/attention_tc.cuh
+    `geometry` computes them: 1024 bytes of alignment slack, the Q panels,
+    the mbarriers, then as many K/V stages as fit, at most 4. Raises
+    ValueError for head dims the kernels do not take."""
+    if any(d <= 0 or d % 16 or d > _TC_MAX_DIM for d in (dk, dv)):
+        raise ValueError(f"head dims ({dk}, {dv}) must be multiples of 16 "
+                         f"up to {_TC_MAX_DIM} for the tensor-core kernel")
+    pk, pv = -(-dk // 64), -(-dv // 64)
+    fixed = 1024 + pk * _TC_Q_PANEL_BYTES + 16 * _TC_MAX_STAGES
+    stage = (pk + pv) * _TC_PANEL_BYTES
+    stages = min(_TC_MAX_STAGES, (_SMEM_LIMIT - fixed) // stage)
+    if stages < 2:
+        raise ValueError(f"head dims ({dk}, {dv}) leave no room for two K/V "
+                         f"stages in the block's shared memory")
+    return stages, fixed + stages * stage
+
+
 def _check(name: str, tensors: Dict[str, torch.Tensor], rows: int, dk: int,
            dv: int) -> int:
-    """Validate the CUDA operands of kernel `name`; returns its dtype code."""
+    """Validate the CUDA operands of kernel `name`; returns its dtype code.
+    Head dims and shared memory are checked against the kernel the dtype
+    takes (`route`): the tensor-core one's geometry, or the CUDA-core one's
+    `rows` query rows per block."""
     first = next(iter(tensors.values()))
     code = _DTYPE_CODE.get(first.dtype)
     if code is None:
         raise TypeError(f"{name}: dtype {first.dtype} not supported "
                         f"(float32 or bfloat16)")
     vec = 16 // first.element_size()
-    if dk % vec or dv % vec:
+    tensor_core = route(name, first.dtype) == "wgmma"
+    if tensor_core:
+        try:
+            _tc_geometry(dk, dv)
+        except ValueError as e:
+            raise ValueError(f"{name}: {e}") from None
+    elif dk % vec or dv % vec:
         raise ValueError(f"{name}: head dims ({dk}, {dv}) must be multiples "
                          f"of {vec} for {first.dtype}")
     for tn, t in tensors.items():
@@ -77,7 +124,7 @@ def _check(name: str, tensors: Dict[str, torch.Tensor], rows: int, dk: int,
                              f"contiguous last dim and 16-byte row strides")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {tn} is not 16-byte aligned")
-    if _smem_bytes(rows, dk, dv) > _SMEM_LIMIT:
+    if not tensor_core and _smem_bytes(rows, dk, dv) > _SMEM_LIMIT:
         raise ValueError(f"{name}: {rows} rows x ({dk}, {dv}) head dims "
                          f"exceed the block's shared memory")
     return code
@@ -95,7 +142,13 @@ def _forward_only(name: str, *tensors: torch.Tensor) -> None:
             f"chunked SSD in models/ssm.py)")
 
 
+_MAP_ERROR = 10000           # csrc/attention_tc.cuh kMapError
+
+
 def _raise_on(name: str, err: int) -> None:
+    if err >= _MAP_ERROR:
+        raise RuntimeError(f"{name}: TMA tensor map encoding failed with "
+                           f"CUresult {err - _MAP_ERROR}")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
