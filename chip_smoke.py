@@ -26,8 +26,9 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
    phase's admission chunk (B=16, C=64, CL=512, D=64, offset 320) and
    `flash_attention` at the dense Preprocessor's forward (B=16, S=512,
    D=64). Each row names the kernel its dtype took (`route`): bfloat16
-   prefill/flash attention on the tensor cores ("wgmma"), float32 and the
-   other kernels on the CUDA cores ("cuda-core").
+   prefill/flash attention and the fused loss on the tensor cores
+   ("wgmma"), float32 and the other kernels on the CUDA cores
+   ("cuda-core").
    The paged decode at the pipeline phase's shapes (granite-3-2b heads,
    CL 512, page 64) and at llama3-8b's (B=16, CL=1024, lengths 773-1017,
    pages of 16 and 64) on a shuffled block table over a pool larger than
@@ -42,7 +43,10 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
    V=50280), a tied (V,D) head and awkward V, N and dw_chunks; values by
    max abs error (2e-5 / 2e-2), gradients by max abs error over the
    largest entry (1e-4 / 2e-2), with the unfused composite (logits,
-   logsumexp, gather, entropy, autograd) as yardstick.
+   logsumexp, gather, entropy, autograd) as yardstick. In bfloat16 every
+   case runs the tensor-core kernels, the heads whose rows TMA cannot
+   describe (V 49155, 50, 777) through the wrapper's aligned staging copy,
+   which the kernel time includes.
    The SSD scan (`ssd_scan`, y and the final state) against the plain
    chunked SSD at mamba2-2.7b's Preprocessor call (16 x 512 tokens, 80
    heads of 64, state 128, chunk 64, x/B/C as strided views of one
@@ -99,15 +103,17 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
    reference logprobs on one batch through the kernel against the plain
    scan (relative RMS <= 5e-2 after 64 bf16 layers).
 
-Then it prints the `{"kernels": [...]}` summary, the GPU's name and power
-limit as nvidia-smi gives them, and, last, `{"ok": true, "device": {...}}`.
+After each path phase it prints the device memory still allocated once
+the phase has returned (`release`): the phases' objects are freed by
+reference counting, with no garbage collection. Then it prints the
+`{"kernels": [...]}` summary, the GPU's name and power limit as nvidia-smi
+gives them, and, last, `{"ok": true, "device": {...}}`.
 A failed check raises: the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
-import gc
 import importlib.metadata
 import json
 import statistics
@@ -1463,7 +1469,9 @@ def phase_pipeline(gpu: str, n_layers: int, device="cuda") -> dict:
     tokens = eng.tokens_generated
     peak_gb = (torch.cuda.max_memory_allocated(dev) / 2**30
                if dev.type == "cuda" else None)
-    eng.step, eng.refill, trainer.step = raw_step, raw_refill, raw_train
+    # back to the class's methods: an instance attribute holding a bound
+    # method of its own object would be a reference cycle
+    del eng.step, eng.refill, trainer.step
     actor.deliver = raw_deliver
 
     # --- checks on what came out
@@ -1684,8 +1692,7 @@ def phase_ssm(gpu: str, n_layers: int, device="cuda") -> dict:
     tokens = eng.tokens_generated
     peak_gb = (torch.cuda.max_memory_allocated(dev) / 2**30
                if dev.type == "cuda" else None)
-    eng.step, trainer.step, pre._ref_logprobs = raw_step, raw_train, raw_ref
-    eng.refill = raw_refill
+    del eng.step, eng.refill, trainer.step, pre._ref_logprobs
     actor.deliver = raw_deliver
 
     # --- checks on what came out
@@ -1833,9 +1840,15 @@ def summary(kernels: list, paths: dict, gpu: str) -> list:
     return out
 
 
-def release_memory() -> None:
-    gc.collect()
+def release_memory(after: str, gpu: str) -> None:
+    """Return the dropped path's cached blocks to the card and report what
+    is still allocated. No garbage collection: a path's objects are freed
+    by reference counting when its phase returns (a `PipelineRL` holds no
+    reference cycle), so what remains allocated is what is still live."""
     torch.cuda.empty_cache()
+    emit({"phase": "release", "after": after, "gpu": gpu,
+          "memory_allocated": torch.cuda.memory_allocated(),
+          "memory_reserved": torch.cuda.memory_reserved()})
 
 
 def main(argv=None) -> int:
@@ -1874,21 +1887,20 @@ def main(argv=None) -> int:
         kernels += phase_fused(gpu, (torch.float32, torch.bfloat16))
         kernels += phase_ssd(gpu)
     # each path runs with the launch counts set to 0 just before it and
-    # read just after (the phases reset and report them). Between paths the
-    # cyclic garbage collector runs first: a PipelineRL's event loop holds
-    # reference cycles, and the device memory they keep is not released by
-    # empty_cache alone
+    # read just after (the phases reset and report them); a path's device
+    # memory is freed when its phase returns
     if "serve" in phases:
         paths["serve"] = phase_serve(gpu, args.layers)
-        release_memory()
+        release_memory("serve", gpu)
     if "train" in phases:
         paths["train"] = phase_train(gpu, args.train_layers)
-        release_memory()
+        release_memory("train", gpu)
     if "pipeline" in phases:
         paths["pipeline"] = phase_pipeline(gpu, args.pipeline_layers)
-        release_memory()
+        release_memory("pipeline", gpu)
     if "ssm" in phases:
         paths["ssm"] = phase_ssm(gpu, args.ssm_layers)
+        release_memory("ssm", gpu)
 
     emit({"kernels": summary(kernels, paths, gpu)})
     print(gpu, flush=True)

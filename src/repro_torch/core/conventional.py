@@ -11,7 +11,9 @@ The phase-boundary weight sync is costed: the fleet sits idle for
 `HardwareModel.broadcast_time` of the full param tree before every
 generation phase (the conventional analogue of the in-flight broadcast
 pause, charged to the same clock so the Fig. 5 comparison is fair). A port of
-the JAX package's `core/conventional.py`."""
+the JAX package's `core/conventional.py`. Its callbacks on the loop refer
+back to it weakly (`weak_method`), so a dropped instance frees its engine
+and trainer by reference counting."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,7 +22,8 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.events import ActorStage, EventLoop, TrainerStage
+from repro_torch.core.events import (ActorStage, EventLoop, TrainerStage,
+                                     weak_method)
 from repro_torch.core.rollout import EngineConfig, GenerationEngine
 from repro_torch.core.sim import HardwareModel
 from repro_torch.core.trainer import Trainer
@@ -69,14 +72,17 @@ class ConventionalRL:
             self.loop, self.engine, task=task, name="fleet",
             step_cost=lambda h: hw.step_cost(h / cc.n_chips),
             auto_refill=False,
-            deliver=lambda rollouts, t: self._rollouts.extend(rollouts),
-            on_drained=self._train_phase)
+            deliver=weak_method(self._collect),
+            on_drained=weak_method(self._train_phase))
 
     @property
     def time(self) -> float:
         return self.loop.now
 
     # ----- phases (event callbacks, not a loop) -------------------------
+    def _collect(self, rollouts, t: float) -> None:
+        self._rollouts.extend(rollouts)
+
     def _generation_phase(self, now: float) -> None:
         """mu <- pi (the fleet idles for the weight transfer), then admit
         B*G prompts and drain them without refilling."""
@@ -102,7 +108,7 @@ class ConventionalRL:
             chunk = [rollouts[i] for i in idx]
             self.trainer_stage.submit(
                 chunk, now,
-                on_done=(self._generation_phase
+                on_done=(weak_method(self._generation_phase)
                          if g == cc.g_steps - 1 else None))
 
     # ----- run ----------------------------------------------------------
@@ -110,6 +116,7 @@ class ConventionalRL:
         n = n_opt_steps or self.cc.n_opt_steps
         if not self._started:
             self._started = True
-            self.loop.post(self.loop.now, self._generation_phase)
+            self.loop.post(self.loop.now,
+                           weak_method(self._generation_phase))
         self.loop.run(until=lambda: self.trainer.version >= n)
         return self.log

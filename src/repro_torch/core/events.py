@@ -38,11 +38,21 @@ Clock invariants: events fire in nondecreasing time order (FIFO on
 ties); a stage's own timeline is nondecreasing; rollout `finished_at`
 stamps are the actor-tick completion times. Times are flashes of the
 Appendix-A model (`core/sim.py`), not device times.
+
+Ownership runs one way: the orchestrator holds the loop, the loop's heap
+holds the stages' pending callbacks, and the stages hold the engines and
+the trainer. A stage refers to its loop through a `weakref.proxy` (its
+owner keeps the loop alive), and a callback that leads back up to an
+owner is a `weak_method`. So a dropped orchestrator frees its engines'
+caches and the trainer's tensors by reference counting alone, without
+waiting for the cyclic garbage collector, and its pending events still
+survive between `run` calls while it lives.
 """
 from __future__ import annotations
 
 import heapq
 import os
+import weakref
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -62,6 +72,29 @@ __all__ = ["ActorStage", "EventLoop", "HealthMonitor", "LagGate",
 # ---------------------------------------------------------------------------
 # event loop
 # ---------------------------------------------------------------------------
+
+def _weakly(loop: "EventLoop") -> "EventLoop":
+    """A stage's reference to its loop: a proxy that does not keep it
+    alive (the stage's owner does)."""
+    return loop if isinstance(loop, weakref.ProxyTypes) else \
+        weakref.proxy(loop)
+
+
+def weak_method(method: Callable) -> Callable:
+    """`method` (a bound method) as a callable that does not keep its
+    object alive: a stage calls back into its owner through one, so the
+    owner is freed by reference counting once dropped. Calling it after
+    the object is gone raises ReferenceError."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args, **kwargs):
+        fn = ref()
+        if fn is None:
+            raise ReferenceError("weak_method: the object is gone")
+        return fn(*args, **kwargs)
+
+    return call
+
 
 class EventLoop:
     """Minimal deterministic discrete-event scheduler: a time-ordered heap
@@ -204,7 +237,8 @@ class ActorStage:
                  on_drained: Optional[Callable[[float], None]] = None,
                  recompute_kv: bool = False,
                  lag_gate: Optional["LagGate"] = None):
-        self.loop, self.engine, self.task, self.name = loop, engine, task, name
+        self.loop, self.engine = _weakly(loop), engine
+        self.task, self.name = task, name
         self.step_cost, self.prefill_cost = step_cost, prefill_cost
         self.page_cost = page_cost
         # periodic-asynchrony (DESIGN.md §12): pool-shared staleness gate
@@ -708,8 +742,10 @@ class PoolRouter:
         self.requeued += len(problems)
 
     def source_for(self, i: int) -> Callable[[], Optional[Any]]:
-        """The prompt-source callable engine `i` pulls from."""
-        return lambda: self.request(i)
+        """The prompt-source callable engine `i` pulls from. It refers to
+        the router weakly: the router holds the engines."""
+        request = weak_method(self.request)
+        return lambda: request(i)
 
     # ---- internals -----------------------------------------------------
     def _load(self, j: int) -> float:
@@ -855,7 +891,7 @@ class HealthMonitor:
                  straggler_patience: int = 2,
                  quarantine_after: int = 3,
                  on_hang: Optional[Callable[[int, float], None]] = None):
-        self.loop, self.actors = loop, list(actors)
+        self.loop, self.actors = _weakly(loop), list(actors)
         self.router = router
         self.speeds = ([float(s) for s in speeds] if speeds is not None
                        else [1.0] * len(self.actors))
@@ -1049,7 +1085,7 @@ class PreprocessStage:
 
     def __init__(self, loop: EventLoop, preprocessor, queue, batch_size: int,
                  trainer_stage: "TrainerStage"):
-        self.loop, self.pre, self.queue = loop, preprocessor, queue
+        self.loop, self.pre, self.queue = _weakly(loop), preprocessor, queue
         self.batch_size = batch_size
         self.trainer_stage = trainer_stage
         self.busy = False
@@ -1123,7 +1159,7 @@ class TrainerStage:
                  samples_per_step: Optional[int] = None,
                  on_free: Optional[Callable[[float], None]] = None,
                  max_lag: Optional[int] = None):
-        self.loop, self.trainer = loop, trainer
+        self.loop, self.trainer = _weakly(loop), trainer
         self.queue, self.batch_size = queue, batch_size
         self.train_time = train_time
         self.pack_rows, self.pack_seq = pack_rows, pack_seq

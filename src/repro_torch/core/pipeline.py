@@ -16,18 +16,24 @@ each actor applies arrived weight publications at its next decode-step
 boundary. Engines in one pool share the trainer's parameter tensors (the
 trainer's Adam makes new tensors, never writing into them).
 
+Ownership runs one way (`core/events.py`): `PipelineRL` holds the loop,
+whose heap holds the stages, which hold the engines and the trainer. No
+callback refers back to `PipelineRL` strongly, so a dropped pipeline frees
+its device memory by reference counting.
+
 Fault injection (`fault_plan`) and mesh placement (`mesh`, `rules`) are
 not ported yet (ROADMAP.md queue A.7).
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence
 
 from repro_torch.configs.base import HealthConfig, ModelConfig
 from repro_torch.core.events import (
     ActorStage, EventLoop, HealthMonitor, LagGate, PoolRouter,
-    PreprocessStage, TrainerStage, WeightBroadcaster,
+    PreprocessStage, TrainerStage, WeightBroadcaster, weak_method,
 )
 from repro_torch.core.queues import SampleQueue
 from repro_torch.core.rollout import EngineConfig, GenerationEngine
@@ -129,11 +135,12 @@ class PipelineRL:
             raise ValueError(f"engine_speeds has {len(speeds)} entries "
                              f"for n_engines={n_eng}")
         self.engine_speeds = speeds
+        loop = weakref.proxy(self.loop)
         self.router = PoolRouter(prompt_source or task.sample,
                                  policy=pc.router,
                                  lookahead=pc.router_lookahead,
                                  slack=pc.router_slack,
-                                 clock=lambda: self.loop.now)
+                                 clock=lambda: loop.now)
         # periodic-asynchrony gate: one pool-shared bounded-staleness
         # barrier, consulted by every actor tick
         self.lag_gate: Optional[LagGate] = None
@@ -145,8 +152,8 @@ class PipelineRL:
                     "max_lag requires update_every=1: unpublished versions "
                     "would strand gate-parked actors with no delivery to "
                     "wake on")
-            self.lag_gate = LagGate(pc.max_lag,
-                                    lambda: self.trainer.version)
+            trainer = self.trainer
+            self.lag_gate = LagGate(pc.max_lag, lambda: trainer.version)
         self.engines: List[GenerationEngine] = [
             self._make_engine(i) for i in range(n_eng)]
         self.router.attach(self.engines, speeds)
@@ -168,13 +175,14 @@ class PipelineRL:
             self.pre_stage = PreprocessStage(
                 self.loop, preprocessor, self.queue, pc.batch_size,
                 self.trainer_stage)
-            self.trainer_stage.on_free = self.pre_stage.kick
-        consumer = self.pre_stage or self.trainer_stage
+            self.trainer_stage.on_free = weak_method(self.pre_stage.kick)
+        queue = self.queue
+        kick = weak_method((self.pre_stage or self.trainer_stage).kick)
 
         def _deliver(rollouts, t):
-            self.queue.put(rollouts)
+            queue.put(rollouts)
             if rollouts:
-                consumer.kick(t)
+                kick(t)
 
         self._deliver = _deliver
         self._chips_per_engine = chips_per_engine
@@ -197,7 +205,7 @@ class PipelineRL:
                 straggler_factor=hc.straggler_factor,
                 straggler_patience=hc.straggler_patience,
                 quarantine_after=hc.quarantine_after,
-                on_hang=self._on_hang)
+                on_hang=weak_method(self._on_hang))
 
     def _make_engine(self, i: int) -> GenerationEngine:
         """Pool engine i, on the trainer's parameter tensors."""
@@ -327,8 +335,9 @@ class PipelineRL:
             "prompts_quarantined": n_quar})
         delay = self.pc.health.hang_restart_after
         if delay is not None:
+            restore = weak_method(self.restore_engine)
             self.loop.post(t + float(delay),
-                           lambda tt, i=i: self.restore_engine(i, tt))
+                           lambda tt, i=i: restore(i, tt))
 
     def restore_engine(self, i: int, t: Optional[float] = None) -> None:
         """Bring a crashed engine back. Before re-admission it gets a

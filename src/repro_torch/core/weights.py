@@ -26,29 +26,31 @@ def _rebuild(node, items):
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
     """(leaves, treedef) with leaves in sorted-key / list order."""
     leaves: List[Any] = []
+    return leaves, _flatten(tree, leaves)
 
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return _rebuild(node, [walk(v) for v in node])
-        leaves.append(node)
-        return _LEAF
 
-    return leaves, walk(tree)
+def _flatten(node, leaves: List[Any]):
+    # module-level, not a closure: a recursive nested function is a
+    # reference cycle that would keep `leaves` (the tensors) alive until
+    # the cyclic garbage collector runs
+    if isinstance(node, dict):
+        return {k: _flatten(node[k], leaves) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return _rebuild(node, [_flatten(v, leaves) for v in node])
+    leaves.append(node)
+    return _LEAF
 
 
 def tree_unflatten(treedef, leaves: Sequence[Any]):
-    it = iter(leaves)
+    return _unflatten(treedef, iter(leaves))
 
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return _rebuild(node, [walk(v) for v in node])
-        return next(it)
 
-    return walk(treedef)
+def _unflatten(node, it):
+    if isinstance(node, dict):
+        return {k: _unflatten(node[k], it) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return _rebuild(node, [_unflatten(v, it) for v in node])
+    return next(it)
 
 
 def _nbytes(x) -> int:

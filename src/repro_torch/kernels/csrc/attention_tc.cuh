@@ -32,28 +32,20 @@
 // tile. The output is O / max(l, 1e-30), rounded once to bfloat16.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <type_traits>
+
+#include "tc_common.cuh"
 
 namespace repro {
 namespace tc {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 128;                 // query rows of a block
 constexpr int kKeys = 64;                  // keys of a K/V tile
 constexpr int kPanel = 64;                 // bfloat16 columns of a panel
 constexpr int kPanelBytes = kKeys * 128;   // a 64 x 64 K or V panel
 constexpr int kQPanelBytes = kRows * 128;  // a 128 x 64 Q panel
-constexpr int kConsumerWarps = 8;
-constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer's
 constexpr int kMaxStages = 4;
 constexpr int kMaxDim = 256;
-constexpr size_t kSmemLimit = 232448;      // bytes a block may use on sm_90
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -89,10 +81,6 @@ struct Smem {
   int stage_bytes, v_off;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 __device__ __forceinline__ Smem carve(uint8_t* raw, int pk, int pv,
                                       int stages) {
   Smem sm;
@@ -108,78 +96,7 @@ __device__ __forceinline__ Smem carve(uint8_t* raw, int pk, int pv,
   return sm;
 }
 
-// ---- mbarriers and TMA -----------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar), "r"(parity) : "memory");
-}
-
-// One 64 x 64 box of a 4-D map at (column, row, head, batch).
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3) : "memory");
-}
-
 // ---- wgmma -----------------------------------------------------------------
-
-// Descriptor of a 128-byte-swizzled operand at shared address `addr`:
-// `lbo` and `sbo` in bytes. K-major: 8-row groups `sbo` apart (lbo unused).
-// MN-major: 8-row groups along K `sbo` apart, 64-column chunks along MN
-// `lbo` apart.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// Wait until at most N committed wgmma groups are in flight.
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads of accumulator registers across the
-// asynchronous wgmma (their values change behind its back).
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 
 #define REPRO_ACC32(d)                                                        \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
@@ -216,11 +133,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : REPRO_ACC32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // ---- block set-up ----------------------------------------------------------
@@ -504,42 +416,7 @@ struct Consumer {
   }
 };
 
-// Warp specialisation: the producer warpgroup gives up registers to the
-// two consumer warpgroups (24 + 2 x 240 per thread fill the SM's 64 K).
-__device__ __forceinline__ void producer_regs() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-}
-__device__ __forceinline__ void consumer_regs() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-}
-
 // ---- host side -------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda.
-inline EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// Returned instead of a cudaError_t when a tensor map cannot be encoded:
-// kMapError + the driver's CUresult.
-constexpr int kMapError = 10000;
 
 // The map of a bfloat16 tensor read as (n3, n2, n1, d) with element
 // strides s3, s2, s1 and a contiguous last dim, in 64 x 64 boxes over (d,
@@ -585,18 +462,6 @@ inline int with_panels(int pk, int pv, F f) {
     case 3: return by_pv(std::integral_constant<int, 3>{});
     default: return by_pv(std::integral_constant<int, 4>{});
   }
-}
-
-// Opt the kernel into `bytes` of dynamic shared memory, then launch it with
-// kThreads threads a block.
-template <typename Kernel, typename... Args>
-inline int launch(Kernel kernel, dim3 grid, size_t bytes, void* stream,
-                  Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(args...);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace tc

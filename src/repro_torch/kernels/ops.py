@@ -9,18 +9,23 @@ counts the kernel launches, so a run can show that it went through them.
 
 Layouts are the JAX package's (`repro.kernels.ops`). The kernels read
 their inputs through the strides, so the wrappers make no transposed or
-contiguous copies. The attention kernels need the last dimension
-contiguous, every other stride and the head dims a multiple of 16 bytes,
-and 16-byte aligned data; they have no backward (neither have the Pallas
-kernels), so on the card they refuse inputs that autograd would
-differentiate rather than cut the gradient silently. `prefill_attention`
-and `flash_attention` dispatch on the dtype (`route`): bfloat16 launches
-the tensor-core kernel (wgmma on TMA-fed tiles; head dims multiples of 16
-up to 256) and float32 the CUDA-core kernel; a bfloat16 shape the
-tensor-core kernel does not take raises. `fused_logprob` is a
-`torch.autograd.Function` whose forward and backward are kernels.
-`ssd_scan` is forward-only like the attention kernels (the Pallas kernel has
-no backward either).
+contiguous copies, with one exception: the bfloat16 fused loss reads its
+operands by TMA, which needs 16-byte row strides, so a head (or hidden)
+whose rows are not (granite's untied (2048, 49155) head) is copied into
+an aligned staging buffer first (`_tc_operand`). The attention kernels
+need the last dimension contiguous, every other stride and the head dims
+a multiple of 16 bytes, and 16-byte aligned data; they have no backward
+(neither have the Pallas kernels), so on the card they refuse inputs that
+autograd would differentiate rather than cut the gradient silently.
+`prefill_attention` and `flash_attention` dispatch on the dtype (`route`):
+bfloat16 launches the tensor-core kernel (wgmma on TMA-fed tiles; head
+dims multiples of 16 up to 256) and float32 the CUDA-core kernel; a
+bfloat16 shape the tensor-core kernel does not take raises.
+`fused_logprob` is a `torch.autograd.Function` whose forward and backward
+are kernels, routed likewise: bfloat16 on the tensor cores
+(csrc/fused_logprob.cu, namespace flp_tc), float32 on the CUDA cores.
+`ssd_scan` is forward-only like the attention kernels (the Pallas kernel
+has no backward either).
 """
 from __future__ import annotations
 
@@ -48,7 +53,8 @@ _TC_PANEL_BYTES = 64 * 128
 _TC_Q_PANEL_BYTES = 128 * 128
 _TC_MAX_STAGES = 4
 _TC_MAX_DIM = 256
-_TENSOR_CORE = ("prefill_attention", "flash_attention")
+_TENSOR_CORE = ("prefill_attention", "flash_attention", "fused_logprob_fwd",
+                "fused_logprob_bwd")
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
@@ -67,7 +73,8 @@ def _smem_bytes(rows: int, dk: int, dv: int) -> int:
 
 def route(name: str, dtype: torch.dtype) -> str:
     """The kernel a CUDA tensor of `dtype` takes in wrapper `name`: "wgmma"
-    (the tensor-core attention kernels, bfloat16) or "cuda-core"."""
+    (the tensor-core attention and fused-loss kernels, bfloat16) or
+    "cuda-core"."""
     return ("wgmma" if name in _TENSOR_CORE and dtype == torch.bfloat16
             else "cuda-core")
 
@@ -358,7 +365,8 @@ def flash_attention(q, k, v, *, scale: float, window: int = 0):
 # ---------------------------------------------------------------------------
 
 _TILE = 128                 # rows and vocab columns of one tile (csrc)
-_SCRATCH_FLOATS = 1 << 26   # bound on the (N, Vc) logits-gradient chunk
+_SCRATCH_BYTES = 1 << 28    # bound on the (N, Vc) logits-gradient chunk
+_TC_PANEL = 64              # rows of a TMA panel (csrc/fused_logprob.cu)
 
 
 def _fused_check(hidden, head, targets, transpose_head: bool):
@@ -389,11 +397,68 @@ def _fused_check(hidden, head, targets, transpose_head: bool):
     return N, D, V, code, strides
 
 
-def _vocab_chunk(N: int, V: int) -> int:
-    """Vocab columns per chunk of the backward's float32 (N, Vc) scratch."""
+def _vocab_chunk(N: int, V: int, dtype=torch.float32) -> int:
+    """Vocab columns per chunk of the backward's (N, Vc) logits-gradient
+    scratch, 4 bytes an entry on both routes: float32 on the CUDA cores,
+    two bfloat16 terms on the tensor cores. The tensor-core chunks are
+    balanced: as few as the byte bound allows, of one width (a multiple of
+    128), so no narrow last chunk costs a whole pass of the dh product."""
     full = -(-V // _TILE) * _TILE
-    fit = max(_TILE, _SCRATCH_FLOATS // max(N, 1) // _TILE * _TILE)
-    return min(full, fit)
+    fit = max(_TILE, _SCRATCH_BYTES // 4 // max(N, 1) // _TILE * _TILE)
+    if dtype != torch.bfloat16:
+        return min(full, fit)
+    n = -(-V // fit)
+    return min(full, -(-(-(-V // n)) // _TILE) * _TILE)
+
+
+def _tc_splits(row_tiles: int, v_tiles: int, sms: int) -> int:
+    """Vocab splits of the tensor-core forward. A block's ring of stages
+    takes most of an SM's shared memory, so one block runs per SM: the
+    splits are the count that minimises waves x vocab tiles per block (the
+    fewest on a tie), with no split left without a tile."""
+    best, best_n = None, 1
+    for n in range(1, v_tiles + 1):
+        per = -(-v_tiles // n)
+        if (n - 1) * per >= v_tiles:
+            continue
+        cost = -(-row_tiles * n // sms) * per
+        if best is None or cost < best:
+            best, best_n = cost, n
+    return best_n
+
+
+def _tc_part_rows(N: int, dw_chunks: int) -> int:
+    """Rows of each float32 dW partial on the tensor cores: N / dw_chunks
+    rounded up to a TMA panel (64 rows), since a panel of hidden rows may
+    not straddle two partials."""
+    per = -(-N // max(int(dw_chunks), 1))
+    return -(-per // _TC_PANEL) * _TC_PANEL
+
+
+def _tc_operand(name: str, t):
+    """A bfloat16 operand of the tensor-core fused loss as the kernels read
+    it: 2-D, a contiguous inner dim, and its base and row stride multiples
+    of 16 bytes, which a TMA map needs. Rows that are not aligned (granite's
+    untied (2048, 49155) head: 98,310-byte rows) are copied into a staging
+    buffer of ceil8(columns) columns, whose padding the kernels never read.
+    A non-contiguous inner dim raises."""
+    if t.dim() != 2:
+        raise ValueError(f"fused_logprob: {name} must be 2-D, got "
+                         f"{tuple(t.shape)}")
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"fused_logprob: the tensor-core kernels take "
+                        f"bfloat16 {name}, got {t.dtype}")
+    rows, cols = t.shape
+    if t.stride(1) != 1 and cols > 1:
+        raise ValueError(f"fused_logprob: {name} strides {t.stride()}: the "
+                         f"tensor-core kernels need a contiguous inner dim")
+    if t.stride(1) == 1 and (t.stride(0) % 8 == 0 or rows == 1) \
+            and t.data_ptr() % 16 == 0:
+        return t
+    staged = torch.empty((rows, -(-cols // 8) * 8), dtype=t.dtype,
+                         device=t.device)
+    staged[:, :cols].copy_(t)
+    return staged
 
 
 def _fused_fwd(hidden, head, targets, transpose_head: bool):
@@ -403,18 +468,33 @@ def _fused_fwd(hidden, head, targets, transpose_head: bool):
     tgt = targets.to(torch.int32).contiguous()
     lp, lse, ent = (torch.empty(N, dtype=torch.float32, device=dev)
                     for _ in range(3))
-    # enough (row tile, vocab split) blocks for two per SM
     row_tiles, v_tiles = -(-N // _TILE), -(-V // _TILE)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split = max(1, min(v_tiles, -(-2 * sms // row_tiles)))
-    ws = torch.empty((4, n_split, N), dtype=torch.float32, device=dev)
-    fn = _lib("fused_logprob", "repro_fused_logprob_fwd",
-              [_i] + [_vp] * 7 + [_i] * 3 + [_vp, _i, _vp])
-    with torch.cuda.device(dev):
-        err = fn(code, hidden.data_ptr(), head.data_ptr(), tgt.data_ptr(),
-                 lp.data_ptr(), lse.data_ptr(), ent.data_ptr(), ws.data_ptr(),
-                 N, D, V, ctypes.cast(strides, ctypes.c_void_p), n_split,
-                 _stream(hidden))
+    if route("fused_logprob_fwd", hidden.dtype) == "wgmma":
+        h = _tc_operand("hidden", hidden)
+        w = _tc_operand("head", head)
+        n_split = _tc_splits(row_tiles, v_tiles, sms)
+        ws = torch.empty((4, n_split, N), dtype=torch.float32, device=dev)
+        fn = _lib("fused_logprob", "repro_fused_logprob_fwd_tc",
+                  [_vp, _vp, _i] + [_vp] * 5 + [_i] * 3 + [_ll, _ll, _i,
+                                                          _vp])
+        with torch.cuda.device(dev):
+            err = fn(h.data_ptr(), w.data_ptr(), int(transpose_head),
+                     tgt.data_ptr(), lp.data_ptr(), lse.data_ptr(),
+                     ent.data_ptr(), ws.data_ptr(), N, D, V, h.stride(0),
+                     w.stride(0), n_split, _stream(hidden))
+    else:
+        # enough (row tile, vocab split) blocks for two per SM
+        n_split = max(1, min(v_tiles, -(-2 * sms // row_tiles)))
+        ws = torch.empty((4, n_split, N), dtype=torch.float32, device=dev)
+        fn = _lib("fused_logprob", "repro_fused_logprob_fwd",
+                  [_i] + [_vp] * 7 + [_i] * 3 + [_vp, _i, _vp])
+        with torch.cuda.device(dev):
+            err = fn(code, hidden.data_ptr(), head.data_ptr(),
+                     tgt.data_ptr(), lp.data_ptr(), lse.data_ptr(),
+                     ent.data_ptr(), ws.data_ptr(), N, D, V,
+                     ctypes.cast(strides, ctypes.c_void_p), n_split,
+                     _stream(hidden))
     _raise_on("fused_logprob_fwd", err)
     launches["fused_logprob_fwd"] += 1
     return lp, lse, ent
@@ -433,18 +513,24 @@ def fused_logprob_bwd(hidden, head, targets, lse, c0, g_lp, g_ent, *,
     `ref.logits_grad_coef`: dh (N, D) in the hidden dtype, dW in the head's
     layout and dtype, a gradient not wanted None. One launch computes each
     vocab chunk's logits gradient once and feeds both products. dw_chunks >
-    1 cuts the rows into that many ranges whose float32 partials are summed
-    here."""
+    1 cuts the rows into that many ranges (on the tensor cores, rounded up
+    to 64 rows) whose float32 partials are summed here."""
     if not (want_dh or want_dw):
         return None, None
     N, D, V, code, strides = _fused_check(hidden, head, targets,
                                           transpose_head)
     dev = hidden.device
     rows = _row_args(targets, lse, c0, g_lp, g_ent)
-    chunk = _vocab_chunk(N, V)
-    per = -(-N // max(int(dw_chunks), 1))
+    tensor_core = route("fused_logprob_bwd", hidden.dtype) == "wgmma"
+    chunk = _vocab_chunk(N, V, hidden.dtype)
+    per = (_tc_part_rows(N, dw_chunks) if tensor_core
+           else -(-N // max(int(dw_chunks), 1)))
     n_parts = -(-N // per)
-    dl = torch.empty((N, chunk), dtype=torch.float32, device=dev)
+    # the logits gradient of a chunk: float32, or on the tensor cores its
+    # two bfloat16 terms bf16(dl) and bf16(dl - bf16(dl))
+    dl = (torch.empty((2, N, chunk), dtype=torch.bfloat16, device=dev)
+          if tensor_core else
+          torch.empty((N, chunk), dtype=torch.float32, device=dev))
     dh = acc = dw = None
     if want_dh:
         dh = torch.empty((N, D), dtype=hidden.dtype, device=dev)
@@ -459,17 +545,26 @@ def fused_logprob_bwd(hidden, head, targets, lse, c0, g_lp, g_ent, *,
             dw = torch.empty(tuple(head.shape), dtype=head.dtype, device=dev)
         o_sd, o_sv = dw.stride()[-2:][::-1] if transpose_head \
             else dw.stride()[-2:]
-    fn = _lib("fused_logprob", "repro_fused_logprob_bwd",
-              [_i] + [_vp] * 11 + [_i] * 3 + [_vp, _ll, _ll, _i, _i, _ll, _i,
-                                              _vp])
+    outs = [None if x is None else x.data_ptr() for x in (dh, acc, dw)]
     with torch.cuda.device(dev):
-        err = fn(code, hidden.data_ptr(), head.data_ptr(),
-                 *(t.data_ptr() for t in rows),
-                 None if dh is None else dh.data_ptr(),
-                 None if acc is None else acc.data_ptr(),
-                 None if dw is None else dw.data_ptr(), dl.data_ptr(),
-                 N, D, V, ctypes.cast(strides, ctypes.c_void_p), o_sd, o_sv,
-                 per, n_parts, D * V, chunk, _stream(hidden))
+        if tensor_core:
+            h = _tc_operand("hidden", hidden)
+            w = _tc_operand("head", head)
+            fn = _lib("fused_logprob", "repro_fused_logprob_bwd_tc",
+                      [_vp, _vp, _i] + [_vp] * 9 + [_i] * 3
+                      + [_ll] * 4 + [_i, _i, _ll, _i, _vp])
+            err = fn(h.data_ptr(), w.data_ptr(), int(transpose_head),
+                     *(t.data_ptr() for t in rows), *outs, dl.data_ptr(),
+                     N, D, V, h.stride(0), w.stride(0), o_sd, o_sv, per,
+                     n_parts, D * V, chunk, _stream(hidden))
+        else:
+            fn = _lib("fused_logprob", "repro_fused_logprob_bwd",
+                      [_i] + [_vp] * 11 + [_i] * 3
+                      + [_vp, _ll, _ll, _i, _i, _ll, _i, _vp])
+            err = fn(code, hidden.data_ptr(), head.data_ptr(),
+                     *(t.data_ptr() for t in rows), *outs, dl.data_ptr(),
+                     N, D, V, ctypes.cast(strides, ctypes.c_void_p), o_sd,
+                     o_sv, per, n_parts, D * V, chunk, _stream(hidden))
     _raise_on("fused_logprob_bwd", err)
     launches["fused_logprob_bwd"] += 1
     if dw is not None and n_parts > 1:

@@ -22,6 +22,14 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+# `checkpoint` imports torch._dynamo at its first call, and that import
+# leaves the frames of the stack it ran on in a reference cycle (torch.fx's
+# `wrap` keeps its own frame, and a frame keeps its callers): whatever the
+# first remat step's callers held, a Trainer or a PipelineRL, would live
+# until the cyclic garbage collector runs. Imported here, the cycle holds
+# only the import's frames.
+import torch._dynamo  # noqa: E402,F401
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops

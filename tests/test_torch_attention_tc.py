@@ -219,11 +219,11 @@ def _flash_operands(dtype, D=128, Dv=None):
 
 
 def test_route_is_by_dtype():
-    for name in ("flash_attention", "prefill_attention"):
+    for name in ("flash_attention", "prefill_attention", "fused_logprob_fwd",
+                 "fused_logprob_bwd"):
         assert ops.route(name, torch.bfloat16) == "wgmma"
         assert ops.route(name, torch.float32) == "cuda-core"
-    for name in ("flash_decode", "flash_decode_paged", "fused_logprob_fwd",
-                 "ssd_scan"):
+    for name in ("flash_decode", "flash_decode_paged", "ssd_scan"):
         assert ops.route(name, torch.bfloat16) == "cuda-core"
 
 
