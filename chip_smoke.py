@@ -35,7 +35,10 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
    the rows need, unallocated blocks on the trash page and two rows
    sharing pages; also held bit for bit against `flash_decode` on the same
    state gathered into the slot layout, with an index_select gather then
-   `scaled_dot_product_attention` as the composite yardstick.
+   `scaled_dot_product_attention` as the composite yardstick. Both decode
+   kernels also at lengths on the edges of their splits (span - 1, span,
+   span + 1 and a full cache, at pages 16 and 64), at hymba-1.5b's heads
+   (25/5, d_head 64) and at phi3-mini's (32/32, d_head 96).
    The fused lm-head loss (forward, and the backward's `dh` and `dW`
    from one launch) against its vocab-blocked
    twin at granite-3-2b's head (N=4096 and the Preprocessor's N=8192,
@@ -103,6 +106,9 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
    reference logprobs on one batch through the kernel against the plain
    scan (relative RMS <= 5e-2 after 64 bf16 layers).
 
+The serve and pipeline profiles report the device ms and launches of the
+decode kernel in their profiled step (`kernels`).
+
 After each path phase it prints the device memory still allocated once
 the phase has returned (`release`): the phases' objects are freed by
 reference counting, with no garbage collection. Then it prints the
@@ -160,6 +166,9 @@ KERNELS = {
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:70", "preprocess", "ssm"),
 }
+# substrings of the decode kernels' device-function names (the split-KV
+# body instantiated with each key-address policy), for the profiles
+DECODE_SLOT, DECODE_PAGED = "SlotAddr", "PagedAddr"
 N_FINISHED = 24
 UPDATE_STEPS = {"atomic": 50, "streamed": 100, "recompute_kv": 150}
 
@@ -422,6 +431,7 @@ def flash_case(B, H, KV, S, D, dtype, seed, window=0):
 def kernel_cases(dtype):
     """(kernel name, label, case builder) at the slice's shapes and at
     awkward ones. The `serve` label marks the shapes of the serving path."""
+    from repro_torch.kernels import ops
     rng = np.random.default_rng(0)
     serve_lengths = rng.integers(769, 1025, 16)   # prompts 768-1000, + decode
     paged_lengths = rng.integers(773, 1018, 16)
@@ -429,6 +439,14 @@ def kernel_cases(dtype):
     # the pipeline phase's decode: granite-3-2b heads, 16 slots, max_len 512,
     # prompts 256-384 plus what was sampled
     pipe_lengths = rng.integers(257, 512, 16)
+    # lengths on the split edges of the decode kernels at the edge cases'
+    # shape (ops._decode_geometry)
+    span = ops._decode_geometry(1024, 4, 128, 128, dtype, 0, 4, 8,
+                                ops._sm_count(torch.device("cuda"))).span
+    edges = [span - 1, span, span + 1, 1024]
+    # hymba-1.5b's 25/5 heads (rep 5, d_head 64) and phi3-mini's 32/32
+    # (MHA, d_head 96), 512-slot caches
+    hymba_lengths, phi3_lengths = [1, 200, 300, 512], [37, 255, 257, 511]
     return [
         ("flash_decode", "serve",
          lambda: decode_case(16, 32, 8, 1024, 128, serve_lengths, dtype, 1)),
@@ -448,6 +466,20 @@ def kernel_cases(dtype):
          lambda: decode_case(2, 4, 4, 96, 32, [96, 5], dtype, 3)),
         ("flash_decode", "mqa",
          lambda: decode_case(2, 8, 1, 256, 128, [200, 256], dtype, 4)),
+        ("flash_decode", "split-edges",
+         lambda: decode_case(4, 32, 8, 1024, 128, edges, dtype, 20)),
+        ("flash_decode_paged", "split-edges-p16",
+         lambda: paged_case(4, 32, 8, 1024, 128, 16, edges, dtype, 21)),
+        ("flash_decode_paged", "split-edges-p64",
+         lambda: paged_case(4, 32, 8, 1024, 128, 64, edges, dtype, 22)),
+        ("flash_decode", "hymba-rep5-d64",
+         lambda: decode_case(4, 25, 5, 512, 64, hymba_lengths, dtype, 23)),
+        ("flash_decode_paged", "hymba-rep5-d64-p16",
+         lambda: paged_case(4, 25, 5, 512, 64, 16, hymba_lengths, dtype, 24)),
+        ("flash_decode", "phi3-mha-d96",
+         lambda: decode_case(4, 32, 32, 512, 96, phi3_lengths, dtype, 25)),
+        ("flash_decode_paged", "phi3-mha-d96-p32",
+         lambda: paged_case(4, 32, 32, 512, 96, 32, phi3_lengths, dtype, 26)),
         ("prefill_attention", "serve",
          lambda: prefill_case(16, 128, 32, 8, 1024, 128, 128, 512, dtype, 5)),
         ("prefill_attention", "offset0-d64",
@@ -829,11 +861,13 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _profile(fn, dev, top: int = 8) -> dict:
+def _profile(fn, dev, top: int = 8, match=None) -> dict:
     """One call of `fn` under torch.profiler (CUPTI): wall time, the summed
     device time of its kernels, their share of the wall time (one stream,
     so kernels do not overlap; the profiler's own host cost is inside the
-    wall time) and the kernels that take the most device time."""
+    wall time), the kernels that take the most device time, and for each
+    `match` entry (label: a substring of kernel names) the device ms and
+    launches of the kernels whose names hold it."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     _sync(dev)
@@ -854,8 +888,12 @@ def _profile(fn, dev, top: int = 8) -> dict:
         if us > 0:
             rows.append((us / 1e3, e.key, e.count))
     busy_ms = sum(r[0] for r in rows)
+    matched = {label: {"ms": sum(r[0] for r in rows if sub in r[1]),
+                       "calls": sum(r[2] for r in rows if sub in r[1])}
+               for label, sub in (match or {}).items()}
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms if busy_ms else None,
+            "kernels": matched,
             "top": [{"kernel": k[:90], "ms": ms, "calls": n}
                     for ms, k, n in sorted(rows, reverse=True)[:top]]}
 
@@ -1013,7 +1051,8 @@ def phase_serve(gpu: str, n_layers: int, device="cuda") -> dict:
         cache = {k: v.clone() for k, v in st["cache"].items()}
         admit = torch.zeros(ec.n_slots, dtype=torch.bool, device=dev)
         profile = {
-            "decode_step": _profile(lambda: eng.step(), dev),
+            "decode_step": _profile(lambda: eng.step(), dev,
+                                    match={"flash_decode": DECODE_SLOT}),
             "prefill_chunk": _profile(lambda: M.prefill_chunk(
                 eng.params, st["tokens"], st["prompt_len"], 512, admit,
                 cache, cfg, chunk=128), dev)}
@@ -1507,8 +1546,9 @@ def phase_pipeline(gpu: str, n_layers: int, device="cuda") -> dict:
         bad.append(f"whole groups: {prefills_whole} prefills, "
                    f"{forks_whole} forks")
     # one paged decode step of the running engine under the profiler
-    profile = _profile(lambda: eng.step(), dev) if dev.type == "cuda" \
-        else None
+    profile = (_profile(lambda: eng.step(), dev,
+                        match={"flash_decode_paged": DECODE_PAGED})
+               if dev.type == "cuda" else None)
     try:
         eng.tables.check()
     except AssertionError as e:

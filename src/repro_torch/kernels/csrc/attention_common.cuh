@@ -1,7 +1,7 @@
-// Shared machinery of the CUDA-core attention kernels (flash_decode,
-// flash_decode_paged, and the float32 builds of prefill_attention and
-// flash_attention; their bfloat16 builds run on the tensor cores, see
-// attention_tc.cuh): one thread block owns
+// Shared machinery of the CUDA-core attention kernels, the float32 builds
+// of prefill_attention and flash_attention (their bfloat16 builds run on the
+// tensor cores, see attention_tc.cuh; the decode kernels have their own
+// body, decode_common.cuh): one thread block owns
 // R query rows that all read the same KV head, keeps their online-softmax
 // state (running max m, denominator l, numerator acc) in shared memory in
 // float32, and streams the keys through shared memory in tiles of kBlockK.
@@ -15,43 +15,20 @@
 // no tensor cores and no copy/compute overlap.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "load_store.cuh"
+
 namespace repro {
 
-constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
 constexpr int kBlockK = 64;  // keys per shared-memory tile
-
-// ---- loads and stores ------------------------------------------------------
-
-__device__ __forceinline__ void load16(const float* p, float* o) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* o) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
-  }
-}
 
 template <typename T>
 struct Vec {
   static constexpr int n = 16 / sizeof(T);  // elements in one 16-byte load
 };
-
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);  // round to nearest even, as astype does
-}
 
 // Floor modulus (Python's %, jnp.remainder): C++ % truncates toward zero,
 // and the ring rule takes the modulus of negative numbers.

@@ -26,11 +26,17 @@ are kernels, routed likewise: bfloat16 on the tensor cores
 (csrc/fused_logprob.cu, namespace flp_tc), float32 on the CUDA cores.
 `ssd_scan` is forward-only like the attention kernels (the Pallas kernel
 has no backward either).
+`flash_decode` and `flash_decode_paged` share one split-KV kernel body
+(csrc/decode_common.cuh), routed by dtype: bfloat16 on the tensor cores
+with mma.sync ("mma"; head dims multiples of 16 up to 256), float32 on the
+CUDA cores (multiples of 4 up to 256). `_decode_geometry` chooses their splits,
+groups of query heads and shared memory from the shapes alone; the splits of a row run as one thread-block cluster and merge in
+shared memory, so the wrapper allocates nothing but the output.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -46,6 +52,16 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448        # bytes of shared memory a block may use on sm_90
 _BLOCK_K = 64               # keys per tile (csrc/attention_common.cuh)
 _ROWS = 32                  # query rows per block of the float32 prefill/flash
+# the split-KV decode kernels (csrc/decode_common.cuh): 4 warps, each with
+# 16 keys of a tile in bfloat16 (mma.sync, query heads padded to 16) and 8
+# in float32 (CUDA cores), a ring of two tiles, head dims up to 256; as
+# many splits as fill the card's resident blocks once
+_DEC_WARPS = 4
+_DEC_STAGES = 2             # tiles in the ring (kStages)
+_DEC_MAX_DIM = 256
+_SM_SMEM = 233472           # shared memory of an SM (1 KB of it per block)
+_SM_BLOCKS = 4              # resident blocks an SM is counted for at most
+_DEC_MAX_SPLITS = 8         # a row's splits are one cluster: 8 blocks at most
 # the bfloat16 prefill/flash kernels on tensor cores (csrc/attention_tc.cuh):
 # 64-column panels of a head dim, 128 query rows and 64-key tiles per block,
 # a ring of at most 4 K/V stages, head dims multiples of 16 up to 256
@@ -55,6 +71,7 @@ _TC_MAX_STAGES = 4
 _TC_MAX_DIM = 256
 _TENSOR_CORE = ("prefill_attention", "flash_attention", "fused_logprob_fwd",
                 "fused_logprob_bwd")
+_MMA = ("flash_decode", "flash_decode_paged")
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
@@ -67,16 +84,22 @@ def reset_launches() -> None:
 
 
 def _smem_bytes(rows: int, dk: int, dv: int) -> int:
+    """Shared memory of a block of the float32 prefill and flash kernels
+    (csrc/attention_common.cuh `smem_bytes`) with `rows` query rows."""
     return 4 * (rows * dk + _BLOCK_K * (dk + 1) + _BLOCK_K * dv
                 + rows * _BLOCK_K + rows * dv + 3 * rows)
 
 
 def route(name: str, dtype: torch.dtype) -> str:
     """The kernel a CUDA tensor of `dtype` takes in wrapper `name`: "wgmma"
-    (the tensor-core attention and fused-loss kernels, bfloat16) or
+    (the tensor-core attention and fused-loss kernels, bfloat16), "mma"
+    (the decode kernels' bfloat16 build: mma.sync on the tensor cores) or
     "cuda-core"."""
-    return ("wgmma" if name in _TENSOR_CORE and dtype == torch.bfloat16
-            else "cuda-core")
+    if dtype == torch.bfloat16 and name in _TENSOR_CORE:
+        return "wgmma"
+    if dtype == torch.bfloat16 and name in _MMA:
+        return "mma"
+    return "cuda-core"
 
 
 def _tc_geometry(dk: int, dv: int) -> tuple:
@@ -98,12 +121,102 @@ def _tc_geometry(dk: int, dv: int) -> tuple:
     return stages, fixed + stages * stage
 
 
-def _check(name: str, tensors: Dict[str, torch.Tensor], rows: int, dk: int,
-           dv: int) -> int:
+class DecodeGeometry(NamedTuple):
+    """A launch of the split-KV decode kernel (csrc/decode_common.cuh)."""
+    span: int        # keys per split
+    splits: int      # the grid's splits, one cluster: ceil(keys / span)
+    tile: int        # keys per ring tile (4 warps' worth)
+    groups: int      # blocks per KV head, each with `rows` query heads
+    rows: int
+    rows_pad: int    # rows of the block's scratch (float32: the kernel
+                     # instance, rows rounded up to a power of two)
+    table: int       # block-table entries a block keeps (paged; 0: slots)
+    head_bytes: int  # q and the table slice, 16-byte aligned
+    smem: int        # dynamic shared memory of a block, bytes
+
+
+def _decode_geometry(keys: int, rep: int, dk: int, dv: int,
+                     dtype: torch.dtype, page_size: int = 0, batch: int = 1,
+                     kv: int = 1, sms: int = 132) -> DecodeGeometry:
+    """The decode kernels' launch for `batch` rows of `keys` cache
+    positions (CL, or NB * PS for the paged kernel), `kv` KV heads of `rep`
+    query heads each and head dims (dk, dv) on a card of `sms` SMs, from
+    the shapes alone. Shared memory as csrc/decode_common.cuh carves it: q
+    (bfloat16: the mma's 16-row tile; float32: the rows), the block-table
+    slice of a split, then the ring of two tiles in `dtype` (rows padded
+    by 16 bytes), which the end-of-split scratch reuses. The splits of a row are
+    one thread-block cluster: a power of two of them, at most 8, as many as
+    keep the grid within one wave of the blocks the SMs hold at once
+    (counted without the page table, so that the slot and paged kernels
+    get the same splits and tiles for the same shapes), each a multiple of
+    64 keys. Raises ValueError for head dims the kernels do not take."""
+    size = torch.empty((), dtype=dtype).element_size()
+    mult = 16 if size == 2 else 4     # the mma's k16 step; 16 bytes
+    if any(d <= 0 or d % mult or d > _DEC_MAX_DIM for d in (dk, dv)):
+        raise ValueError(f"head dims ({dk}, {dv}) must be multiples of {mult} "
+                         f"up to {_DEC_MAX_DIM} for {dtype}")
+    if keys <= 0 or rep <= 0:
+        raise ValueError(f"{keys} cache positions, {rep} heads per KV head")
+    kw, max_rows = (16, 16) if size == 2 else (8, 8)
+    groups = -(-rep // max_rows)
+    heads = -(-rep // groups)
+    rows_pad = heads if size == 2 else 1 << (heads - 1).bit_length()
+    q_bytes = 16 * (2 * dk + 16) if size == 2 else 4 * rows_pad * dk
+
+    def head_bytes(table):
+        return -(-(q_bytes + 4 * table) // 16) * 16
+
+    ring = _DEC_STAGES * _DEC_WARPS * kw * (dk * size + dv * size + 32)
+    scratch = 4 * rows_pad * ((_DEC_WARPS + 1) * dv + 3 * _DEC_WARPS + 2)
+    per_sm = max(1, min(_SM_BLOCKS, _SM_SMEM // (head_bytes(0)
+                                                 + max(ring, scratch) + 1024)))
+    fit = max(1, sms * per_sm // (batch * kv * groups))
+    splits = min(_DEC_MAX_SPLITS, 1 << (fit.bit_length() - 1))
+    span = -(-(-(-keys // splits)) // 64) * 64
+    table = span // page_size + 2 if page_size else 0
+    head = head_bytes(table)
+    if head + max(ring, scratch) > _SMEM_LIMIT:
+        raise ValueError(f"head dims ({dk}, {dv}) leave no room for two "
+                         f"stages in the block's shared memory")
+    return DecodeGeometry(span, -(-keys // span), _DEC_WARPS * kw, groups,
+                          heads, rows_pad, table, head,
+                          head + max(ring, scratch))
+
+
+_sms: Dict[torch.device, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """The SM count of `device`, read once."""
+    n = _sms.get(device)
+    if n is None:
+        n = _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+class _DecodeParams(ctypes.Structure):
+    """csrc/decode_common.cuh `Params`, field by field."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in ("q", "k", "v", "table", "lengths",
+                                        "out")]
+        + [(n, ctypes.c_longlong) for n in ("q_sb", "q_sh", "k_s0", "k_ss",
+                                            "k_sh", "v_s0", "v_ss", "v_sh",
+                                            "o_sb", "o_sh")]
+        + [(n, ctypes.c_int) for n in ("B", "KV", "rep", "nrg", "rows",
+                                       "rmax", "keys", "dk", "dv", "span",
+                                       "nsplit", "head_bytes", "smem", "ps",
+                                       "ps_shift", "nb")]
+        + [("scale", ctypes.c_float)])
+
+
+def _check(name: str, tensors: Dict[str, torch.Tensor], rows: Optional[int],
+           dk: int, dv: int) -> int:
     """Validate the CUDA operands of kernel `name`; returns its dtype code.
     Head dims and shared memory are checked against the kernel the dtype
     takes (`route`): the tensor-core one's geometry, or the CUDA-core one's
-    `rows` query rows per block."""
+    `rows` query rows per block (None: the caller checks its kernel's
+    geometry itself)."""
     first = next(iter(tensors.values()))
     code = _DTYPE_CODE.get(first.dtype)
     if code is None:
@@ -131,7 +244,8 @@ def _check(name: str, tensors: Dict[str, torch.Tensor], rows: int, dk: int,
                              f"contiguous last dim and 16-byte row strides")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {tn} is not 16-byte aligned")
-    if not tensor_core and _smem_bytes(rows, dk, dv) > _SMEM_LIMIT:
+    if (not tensor_core and rows is not None
+            and _smem_bytes(rows, dk, dv) > _SMEM_LIMIT):
         raise ValueError(f"{name}: {rows} rows x ({dk}, {dv}) head dims "
                          f"exceed the block's shared memory")
     return code
@@ -180,8 +294,52 @@ def _lib(name: str, symbol: str, argtypes):
 
 
 # ---------------------------------------------------------------------------
-# flash_decode
+# flash_decode and flash_decode_paged: one split-KV kernel body
 # ---------------------------------------------------------------------------
+
+def _decode_launch(name, lib, symbol, q, k, v, table, lengths, keys: int,
+                   page_size: int, k_strides, v_strides, scale: float):
+    """Check, allocate and launch one of the two decode kernels. k_strides
+    and v_strides: (row or page, position or page offset, KV head)."""
+    _forward_only(name, q, k, v)
+    B, H, Dk = q.shape
+    KV, Dv = k.shape[2], v.shape[-1]
+    rep = H // KV
+    code = _check(name, {"q": q, "k": k, "v": v}, None, Dk, Dv)
+    try:
+        geo = _decode_geometry(keys, rep, Dk, Dv, q.dtype, page_size, B, KV,
+                               _sm_count(q.device))
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    tensors = [lengths] if table is None else [table, lengths]
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: block_tables and lengths must be on q's "
+                         f"device")
+    lengths = lengths.to(torch.int32).contiguous()
+    if table is not None:
+        table = table.to(torch.int32).contiguous()
+    out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
+    shift = page_size.bit_length() - 1 if page_size else 0
+    p = _DecodeParams(
+        q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
+        table=table.data_ptr() if table is not None else None,
+        lengths=lengths.data_ptr(), out=out.data_ptr(),
+        q_sb=q.stride(0), q_sh=q.stride(1), k_s0=k_strides[0],
+        k_ss=k_strides[1], k_sh=k_strides[2], v_s0=v_strides[0],
+        v_ss=v_strides[1], v_sh=v_strides[2], o_sb=out.stride(0),
+        o_sh=out.stride(1), B=B, KV=KV, rep=rep, nrg=geo.groups,
+        rows=geo.rows, rmax=geo.rows_pad, keys=keys, dk=Dk, dv=Dv,
+        span=geo.span, nsplit=geo.splits, head_bytes=geo.head_bytes,
+        smem=geo.smem,
+        ps=page_size, ps_shift=(shift if page_size == 1 << shift else -1),
+        nb=table.shape[1] if table is not None else 0, scale=float(scale))
+    fn = _lib(lib, symbol, [_i, _vp, _vp])
+    with torch.cuda.device(q.device):
+        err = fn(code, ctypes.addressof(p), _stream(q))
+    _raise_on(name, err)
+    launches[name] += 1
+    return out
+
 
 def flash_decode(q, k_cache, v_cache, lengths, *, scale: float):
     """One-token decode attention. q: (B,H,Dk); caches: (B,CL,KV,D) (a
@@ -191,40 +349,18 @@ def flash_decode(q, k_cache, v_cache, lengths, *, scale: float):
         return ref.flash_decode_ref(q, k_cache, v_cache, lengths, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
-    _forward_only("flash_decode", q, k_cache, v_cache)
     B, H, Dk = q.shape
     Bc, CL, KV, Dk2 = k_cache.shape
-    Dv = v_cache.shape[-1]
     if (Bc != B or Dk2 != Dk or v_cache.shape[:3] != k_cache.shape[:3]
             or H % KV or tuple(lengths.shape) != (B,)):
         raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k_cache.shape)}, v {tuple(v_cache.shape)}, "
                          f"lengths {tuple(lengths.shape)}")
-    rep = H // KV
-    code = _check("flash_decode", {"q": q, "k_cache": k_cache,
-                                   "v_cache": v_cache}, rep, Dk, Dv)
-    if lengths.device != q.device:
-        raise ValueError("flash_decode: lengths must be on q's device")
-    lengths = lengths.to(torch.int32).contiguous()
-    out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
-    fn = _lib("decode_attention", "repro_flash_decode",
-              [_i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f]
-              + [_ll] * 10 + [_vp])
-    with torch.cuda.device(q.device):
-        err = fn(code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 lengths.data_ptr(), out.data_ptr(), B, KV, rep, CL, Dk, Dv,
-                 float(scale), q.stride(0), q.stride(1), k_cache.stride(0),
-                 k_cache.stride(1), k_cache.stride(2), v_cache.stride(0),
-                 v_cache.stride(1), v_cache.stride(2), out.stride(0),
-                 out.stride(1), _stream(q))
-    _raise_on("flash_decode", err)
-    launches["flash_decode"] += 1
-    return out
+    return _decode_launch("flash_decode", "decode_attention",
+                          "repro_flash_decode", q, k_cache, v_cache, None,
+                          lengths, CL, 0, k_cache.stride()[:3],
+                          v_cache.stride()[:3], scale)
 
-
-# ---------------------------------------------------------------------------
-# flash_decode_paged
-# ---------------------------------------------------------------------------
 
 def flash_decode_paged(q, k_pool, v_pool, block_tables, lengths, *,
                        scale: float):
@@ -239,10 +375,8 @@ def flash_decode_paged(q, k_pool, v_pool, block_tables, lengths, *,
                                           lengths, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_paged: unsupported device {q.device}")
-    _forward_only("flash_decode_paged", q, k_pool, v_pool)
     B, H, Dk = q.shape
     NP, PS, KV, Dk2 = k_pool.shape
-    Dv = v_pool.shape[-1]
     NB = block_tables.shape[-1]
     if (Dk2 != Dk or v_pool.shape[:3] != k_pool.shape[:3] or H % KV
             or tuple(block_tables.shape) != (B, NB)
@@ -252,28 +386,10 @@ def flash_decode_paged(q, k_pool, v_pool, block_tables, lengths, *,
             f"{tuple(k_pool.shape)}, v_pool {tuple(v_pool.shape)}, "
             f"block_tables {tuple(block_tables.shape)}, lengths "
             f"{tuple(lengths.shape)}")
-    rep = H // KV
-    code = _check("flash_decode_paged", {"q": q, "k_pool": k_pool,
-                                         "v_pool": v_pool}, rep, Dk, Dv)
-    if block_tables.device != q.device or lengths.device != q.device:
-        raise ValueError("flash_decode_paged: block_tables and lengths must "
-                         "be on q's device")
-    bt = block_tables.to(torch.int32).contiguous()
-    lengths = lengths.to(torch.int32).contiguous()
-    out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 10)(
-        *q.stride()[:2], *k_pool.stride()[:3], *v_pool.stride()[:3],
-        *out.stride()[:2])
-    fn = _lib("paged_decode", "repro_flash_decode_paged",
-              [_i] + [_vp] * 6 + [_i] * 7 + [_f, _vp, _vp])
-    with torch.cuda.device(q.device):
-        err = fn(code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 bt.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, KV,
-                 rep, PS, NB, Dk, Dv, float(scale),
-                 ctypes.cast(strides, ctypes.c_void_p), _stream(q))
-    _raise_on("flash_decode_paged", err)
-    launches["flash_decode_paged"] += 1
-    return out
+    return _decode_launch("flash_decode_paged", "paged_decode",
+                          "repro_flash_decode_paged", q, k_pool, v_pool,
+                          block_tables, lengths, NB * PS, PS,
+                          k_pool.stride()[:3], v_pool.stride()[:3], scale)
 
 
 # ---------------------------------------------------------------------------
