@@ -53,13 +53,18 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
    The SSD scan (`ssd_scan`, y and the final state) against the plain
    chunked SSD at mamba2-2.7b's Preprocessor call (16 x 512 tokens, 80
    heads of 64, state 128, chunk 64, x/B/C as strided views of one
-   tensor) and train shape (4 x 1024), and at awkward shapes (2 and 3
-   groups, P 32 and 16, N 16 and 8, chunks of 16 and 32, one chunk),
-   |err| <= atol + rtol |plain| with (1e-4, 1e-3) in float32 and (5e-2,
-   5e-2) in bfloat16; a differentiated call must raise. No PyTorch call
-   computes the scan, so it has no library time.
+   tensor) and train shape (4 x 1024), at awkward shapes (2 and 3
+   groups, P 32 and 16, N 16 and 8, chunks of 16 and 32, one chunk), at
+   hymba-1.5b's Preprocessor call (16 x 512, 50 heads of 64, state 16)
+   and at the widths the kernel's layout reaches beyond those (N 256, P
+   128 and 256, a chunk of 128 walked in halves, x/B/C at strides and
+   data not 16-byte aligned), |err| <= atol + rtol |plain| with (1e-4,
+   1e-3) in float32 and (5e-2, 5e-2) in bfloat16; bfloat16 on the tensor
+   cores ("mma"), float32 on the CUDA cores; a differentiated call must
+   raise. No PyTorch call computes the scan, so it has no library time.
    Each row has the kernel's, the plain version's and the yardstick's
-   times (CUDA events) and the card's bound.
+   times (CUDA events), the card's bound and the bound's share of the
+   kernel's time (`bound_share`).
 4. serve: llama3-8b at full width and depth in bfloat16 with random weights
    from a seed. `GenerationEngine(n_slots=16, max_len=1024,
    prefill_chunk=128)` serves random prompts of 768-1000 tokens until at
@@ -104,7 +109,9 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
    the stamps, finite behavior logprobs, the launches (`ssd_scan` = layers
    x Preprocessor calls, no attention kernel), and the Preprocessor's
    reference logprobs on one batch through the kernel against the plain
-   scan (relative RMS <= 5e-2 after 64 bf16 layers).
+   scan (relative RMS <= 5e-2 after 64 bf16 layers); one such
+   Preprocessor call runs under the profiler, which reports the device
+   ms of its 64 `ssd_scan` launches (`preprocess_profile`).
 
 The serve and pipeline profiles report the device ms and launches of the
 decode kernel in their profiled step (`kernels`).
@@ -699,15 +706,16 @@ SSD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (5e-2, 5e-2)}
 SSD_LIBRARY = "none (no PyTorch call computes the scan)"
 
 
-def ssd_case(b, l, h, p, g, n, chunk, dtype, seed, views=False):
+def ssd_case(b, l, h, p, g, n, chunk, dtype, seed, views=False, skew=0):
     """Inputs and callables of one ssd_scan case, in the law of the JAX
     package's tests: x, B, C unit normal, dt = softplus(normal), A =
     -exp(normal). `views`: x, B and C are slices of one (b, l, h*p + 2gn)
-    tensor, as the model passes its conv output."""
+    tensor, as the model passes its conv output; `skew` elements more
+    before x and in each row leave them off 16-byte alignment."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(seed)
     if views:
-        xbc = _randn(gen, (b, l, h * p + 2 * g * n), dtype)
+        xbc = _randn(gen, (b, l, skew + h * p + 2 * g * n), dtype)[..., skew:]
         x = xbc[..., :h * p].view(b, l, h, p)
         B = xbc[..., h * p:h * p + g * n].view(b, l, g, n)
         C = xbc[..., h * p + g * n:].view(b, l, g, n)
@@ -719,15 +727,18 @@ def ssd_case(b, l, h, p, g, n, chunk, dtype, seed, views=False):
     A = -torch.exp(torch.randn((h,), generator=gen, device="cuda"))
     elt = x.element_size()
     # bytes: x, B, C, dt and A read once, y and the state written once;
-    # operations: per (row, head, chunk) the causal triangle T of C.B^T and
-    # of scores.(dt x), then C.state and B^T.(decay dt x)
-    q, nc = chunk, l // chunk
+    # operations: per (row, head, chunk the kernel walks) the causal
+    # triangle T of C.B^T and of scores.(dt x), then C.state and
+    # B^T.(decay dt x)
+    q = ops._ssd_geometry(h, p, g, n, chunk, dtype).q
+    nc = l // q
     tri = q * (q + 1) // 2
     nbytes = elt * (2 * b * l * h * p + 2 * b * l * g * n) \
         + 4 * (b * l * h + h + b * h * n * p)
     flops = 2.0 * b * h * nc * (tri * n + tri * p + 2 * q * n * p)
     return dict(
-        shape=dict(b=b, l=l, h=h, p=p, g=g, n=n, chunk=chunk, views=views),
+        shape=dict(b=b, l=l, h=h, p=p, g=g, n=n, chunk=chunk, views=views,
+                   skew=skew, kernel_chunk=q),
         args=(x, dt, A, B, C),
         kernel=lambda: ops.ssd_scan(x, dt, A, B, C, chunk=chunk),
         plain=lambda: ref.ssd_scan_ref(x, dt, A, B, C, chunk=chunk),
@@ -739,8 +750,11 @@ def ssd_case(b, l, h, p, g, n, chunk, dtype, seed, views=False):
 
 def ssd_cases():
     """(label, args) of ssd_scan: mamba2-2.7b's Preprocessor call (16 x 512,
-    the main path), its train shape (4 x 1024), then awkward shapes: heads
-    repeating over 2 groups, P 32, N 16, chunks of 16 and 32, one chunk."""
+    the main path), its train shape (4 x 1024), awkward shapes (heads
+    repeating over 2 groups, P 32, N 16, chunks of 16 and 32, one chunk),
+    then hymba-1.5b's Preprocessor call (50 heads of 64, state 16), and
+    the widths the layout reaches beyond them: N 256 (float32 walks
+    32-token chunks), P 128 and 256, a chunk of 128 and unaligned views."""
     mamba = dict(h=80, p=64, g=1, n=128, chunk=64, views=True)
     return [
         ("preprocess", dict(b=16, l=512, **mamba)),
@@ -748,6 +762,14 @@ def ssd_cases():
         ("g2-p32-n16-c16", dict(b=2, l=96, h=6, p=32, g=2, n=16, chunk=16)),
         ("g3-p16-n8-c32", dict(b=1, l=96, h=6, p=16, g=3, n=8, chunk=32)),
         ("one-chunk", dict(b=3, l=64, h=4, p=64, g=1, n=128, chunk=64)),
+        ("hymba", dict(b=16, l=512, h=50, p=64, g=1, n=16, chunk=64,
+                       views=True)),
+        ("n256", dict(b=2, l=256, h=4, p=64, g=1, n=256, chunk=64)),
+        ("p128-n128", dict(b=2, l=256, h=4, p=128, g=1, n=128, chunk=64)),
+        ("p256-n64", dict(b=1, l=128, h=2, p=256, g=1, n=64, chunk=64)),
+        ("c128-g2", dict(b=2, l=256, h=4, p=64, g=2, n=64, chunk=128)),
+        ("unaligned", dict(b=2, l=128, h=6, p=32, g=2, n=16, chunk=32,
+                           views=True, skew=1)),
     ]
 
 
@@ -795,11 +817,14 @@ def phase_ssd(gpu: str) -> list:
                        plain_ms=cuda_ms(case["plain"], 3),
                        library_ms=None, library=SSD_LIBRARY,
                        bound_ms=case["bound"][0], bound_by=case["bound"][1])
+            row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+            x, _, _, B, C = case["args"]
+            row["cp_async"] = ops._aligned16(x, B, C)
             results.append(row)
             if not ok:
                 failures.append(f"ssd_scan/{label}/{row['dtype']}: errors "
                                 f"{errs}, {ratio} of the tolerance")
-            del case, out, plain, exact
+            del case, out, plain, exact, x, B, C
             torch.cuda.empty_cache()
     # a differentiated call would cut the gradient: the wrapper refuses it
     case = ssd_case(2, 64, 4, 16, 1, 16, 16, torch.float32, 299)
@@ -1786,6 +1811,10 @@ def phase_ssm(gpu: str, n_layers: int, device="cuda") -> dict:
         return np.concatenate([r.ref_logprobs for r in done])
 
     lp_k = ref_logprobs()
+    # one Preprocessor call under the profiler: the device ms of its
+    # `ssd_scan` launches (one per layer)
+    pre_profile = (_profile(ref_logprobs, dev, match={"ssd_scan": "ssd::"})
+                   if dev.type == "cuda" else None)
     with plain_ssd():
         lp_p = ref_logprobs()
     d = lp_k - lp_p
@@ -1833,6 +1862,7 @@ def phase_ssm(gpu: str, n_layers: int, device="cuda") -> dict:
            "stamps_nondecreasing": stamps_ok, "peak_mem_gib": peak_gb,
            "launches": launches, "expected_launches": want,
            "preprocess_kernel_vs_plain": check, "profile": profile,
+           "preprocess_profile": pre_profile,
            "failures": bad}
     emit(res)
     if bad:
@@ -1865,6 +1895,7 @@ def summary(kernels: list, paths: dict, gpu: str) -> list:
                 plain_ms=main_row["plain_ms"],
                 bound_ms=main_row["bound_ms"],
                 bound_by=main_row["bound_by"],
+                bound_share=main_row["bound_ms"] / main_row["kernel_ms"],
                 library_ms=main_row["library_ms"], shape=main_row["shape"],
                 dtype=main_row["dtype"], tol=main_row["tol"])
             if "yardstick_ms" in main_row:

@@ -25,7 +25,10 @@ bfloat16 shape the tensor-core kernel does not take raises.
 are kernels, routed likewise: bfloat16 on the tensor cores
 (csrc/fused_logprob.cu, namespace flp_tc), float32 on the CUDA cores.
 `ssd_scan` is forward-only like the attention kernels (the Pallas kernel
-has no backward either).
+has no backward either), routed by dtype: bfloat16 on the tensor cores
+with mma.sync behind a cp.async ring of chunks ("mma"), float32 on the CUDA
+cores; `_ssd_geometry` chooses the chunk it walks, its heads per block and
+shared memory from the shapes.
 `flash_decode` and `flash_decode_paged` share one split-KV kernel body
 (csrc/decode_common.cuh), routed by dtype: bfloat16 on the tensor cores
 with mma.sync ("mma"; head dims multiples of 16 up to 256), float32 on the
@@ -71,7 +74,7 @@ _TC_MAX_STAGES = 4
 _TC_MAX_DIM = 256
 _TENSOR_CORE = ("prefill_attention", "flash_attention", "fused_logprob_fwd",
                 "fused_logprob_bwd")
-_MMA = ("flash_decode", "flash_decode_paged")
+_MMA = ("flash_decode", "flash_decode_paged", "ssd_scan")
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
@@ -93,8 +96,8 @@ def _smem_bytes(rows: int, dk: int, dv: int) -> int:
 def route(name: str, dtype: torch.dtype) -> str:
     """The kernel a CUDA tensor of `dtype` takes in wrapper `name`: "wgmma"
     (the tensor-core attention and fused-loss kernels, bfloat16), "mma"
-    (the decode kernels' bfloat16 build: mma.sync on the tensor cores) or
-    "cuda-core"."""
+    (the bfloat16 builds of the decode kernels and the SSD scan: mma.sync
+    on the tensor cores) or "cuda-core"."""
     if dtype == torch.bfloat16 and name in _TENSOR_CORE:
         return "wgmma"
     if dtype == torch.bfloat16 and name in _MMA:
@@ -731,11 +734,84 @@ def fused_logprob(hidden, head, targets, *, transpose_head: bool = False,
 # ssd_scan
 # ---------------------------------------------------------------------------
 
-def _ssd_smem_bytes(chunk: int, p: int, n: int) -> int:
-    """Shared memory of one ssd_scan block (csrc/ssd_scan.cu): the (N,P)
-    state, B (padded rows), C, dt*x and the scores, all float32."""
-    return 4 * (n * p + chunk * (n + 1) + chunk * n + chunk * p
-                + chunk * chunk + 4 * chunk)
+# the SSD scan (csrc/ssd_scan.cu): Q, N and P padded to 16 in shared memory,
+# chunks of at most 64 tokens a block holds; bfloat16 takes one warp per 16
+# columns of P for each of the block's heads and holds its slice of the
+# state in registers (N up to 256, in blocks of at most 256 threads above
+# N 128), float32 a 256-thread block per (row, head)
+_SSD_PAD = 16
+_SSD_MAX_Q = 64
+_SSD_MMA_MAX_N = 256
+_SSD_HEADS = (4, 2, 1)       # heads per bfloat16 block, in order of preference
+_SSD_FMA_THREADS = 256
+_SM_THREADS = 2048           # resident threads of an SM
+
+
+class SsdGeometry(NamedTuple):
+    """A launch of the SSD scan kernel (csrc/ssd_scan.cu)."""
+    q: int           # the chunk the kernel walks, a divisor of the caller's
+    heads: int       # heads per block, all of one B/C group
+    threads: int     # per block
+    qp: int          # q, N and P padded to 16
+    np: int
+    pp: int
+    smem: int        # dynamic shared memory of a block, bytes
+    blocks_per_sm: int  # resident blocks by shared memory and threads
+    warps_per_sm: int   # (registers permitting)
+
+
+def _ssd_geometry(h: int, p: int, g: int, n: int, chunk: int,
+                  dtype: torch.dtype) -> SsdGeometry:
+    """The SSD scan's launch for `h` heads of width `p` over `g` groups of
+    state `n`, chunks of `chunk`, from the shapes alone. Shared memory as
+    csrc/ssd_scan.cu `Layout` carves it: a ring of two stages [B][C][x of
+    each head][dt of each head], rows padded by 16 bytes, then per head
+    S' (bfloat16: hi and lo terms), A_cum (float64), exp(A_cum), w and the
+    decay (float32: then the state). The kernel walks the largest divisor
+    of `chunk` up to 64 whose tiles fit (the scan does not depend on its
+    chunking but for rounding); bfloat16 takes the first of `_SSD_HEADS`
+    heads per block that divides h / g and fits, float32 one.
+    Raises ValueError for shapes the kernel does not take."""
+    pad = lambda v: -(-v // _SSD_PAD) * _SSD_PAD  # noqa: E731
+    np_, pp = pad(n), pad(p)
+    size = torch.empty((), dtype=dtype).element_size()
+    if size == 2 and np_ > _SSD_MMA_MAX_N:
+        raise ValueError(f"N {n}: the bfloat16 kernel holds the state in "
+                         f"registers, N up to {_SSD_MMA_MAX_N}")
+    rowb, rowx = np_ * size + 16, pp * size + 16
+    max_threads = 256 if np_ > 128 else 512
+    rep = h // g
+    heads = [k for k in _SSD_HEADS if rep % k == 0] if size == 2 else [1]
+    for q in range(min(chunk, _SSD_MAX_Q), 0, -1):
+        if chunk % q:
+            continue
+        qp = pad(q)
+        rows = qp * size + 16
+        if size == 2:
+            head = 2 * qp * rows + 16 * qp + 16
+        else:
+            head = qp * rows + 16 * qp + 16 + np_ * rowx
+        for k in heads:
+            threads = 2 * pp * k if size == 2 else _SSD_FMA_THREADS
+            smem = 2 * (2 * qp * rowb + k * (qp * rowx + 4 * qp)) + k * head
+            if threads <= max_threads and smem <= _SMEM_LIMIT:
+                blocks = min(_SM_SMEM // (smem + 1024),
+                             _SM_THREADS // threads)
+                return SsdGeometry(q, k, threads, qp, np_, pp, smem, blocks,
+                                   blocks * threads // 32)
+    threads = (f" and {max_threads} threads (P up to {max_threads // 2})"
+               if size == 2 else "")
+    raise ValueError(f"chunk {chunk}, N {n}, P {p}: the kernel's tiles do not "
+                     f"fit a block's {_SMEM_LIMIT} bytes of shared "
+                     f"memory{threads}")
+
+
+def _aligned16(*ts: torch.Tensor) -> bool:
+    """Whether each tensor's data and all strides but the last are 16-byte
+    aligned, so the SSD scan copies its tiles by cp.async."""
+    return all(t.data_ptr() % 16 == 0
+               and all(st * t.element_size() % 16 == 0
+                       for st in t.stride()[:-1]) for t in ts)
 
 
 def _ssd_check(x, dt, A, B, C, chunk: int) -> None:
@@ -762,6 +838,17 @@ def _ssd_check(x, dt, A, B, C, chunk: int) -> None:
                         f"float32")
 
 
+class _SsdParams(ctypes.Structure):
+    """csrc/ssd_scan.cu `ssd::Params`, field by field."""
+    _fields_ = ([(k, _vp) for k in ("x", "dt", "A", "B", "C", "y", "state")]
+                + [(k, _ll) for k in ("x_sb", "x_sl", "x_sh", "dt_sb", "dt_sl",
+                                      "dt_sh", "b_sb", "b_sl", "b_sg", "c_sb",
+                                      "c_sl", "c_sg")]
+                + [(k, _i) for k in ("batch", "L", "H", "P", "G", "N", "Q",
+                                     "qp", "np", "pp", "heads", "aligned",
+                                     "smem")])
+
+
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 64):
     """Mamba2 SSD chunked scan: the intra-chunk attention form and the
     inter-chunk state recurrence. x: (b,l,h,p); dt: (b,l,h) float32
@@ -769,9 +856,14 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64):
     reading group h // (h/g); l % chunk == 0, P and N multiples of 8.
     Returns y (b,l,h,p) in x's dtype and the final state (b,h,n,p)
     float32. x, B and C may be strided views (the model passes slices of
-    one conv output); their last dim must be contiguous. The recurrence
-    is reassociated across chunks: equal to `ref.ssd_scan_ref` to float32
-    tolerance, not bitwise."""
+    one conv output) with their last dim contiguous; the kernel copies
+    them by cp.async where their strides and data are 16-byte aligned.
+    On the card, bfloat16 runs on the tensor cores (its products split
+    float32 operands in two bf16 terms; N up to 256, P up to 256, or 128
+    above N 128) and float32 on the CUDA cores (as far as the block's
+    shared memory holds the state); the kernel walks a divisor of `chunk`
+    up to 64 tokens long. The recurrence is reassociated across chunks:
+    equal to `ref.ssd_scan_ref` to the dtype's tolerance, not bitwise."""
     chunk = int(chunk)
     _ssd_check(x, dt, A, B, C, chunk)
     if x.device.type == "cpu":
@@ -789,21 +881,23 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64):
         if t.stride(-1) != 1:
             raise ValueError(f"ssd_scan: {tn} strides {t.stride()} need a "
                              f"contiguous last dim")
-    if _ssd_smem_bytes(chunk, p, n) > _SMEM_LIMIT:
-        raise ValueError(f"ssd_scan: chunk {chunk}, P {p}, N {n} exceed the "
-                         f"block's shared memory")
+    try:
+        geo = _ssd_geometry(h, p, g, n, chunk, x.dtype)
+    except ValueError as e:
+        raise ValueError(f"ssd_scan: {e}") from None
     A = A.contiguous()
     y = torch.empty((b, l, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
-    strides = (ctypes.c_longlong * 12)(
-        *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3])
-    fn = _lib("ssd_scan", "repro_ssd_scan",
-              [_i] + [_vp] * 7 + [_i] * 7 + [_vp, _vp])
+    prm = _SsdParams(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                     C.data_ptr(), y.data_ptr(), state.data_ptr(),
+                     *x.stride()[:3], *dt.stride(), *B.stride()[:3],
+                     *C.stride()[:3], b, l, h, p, g, n, geo.q, geo.qp,
+                     geo.np, geo.pp, geo.heads, int(_aligned16(x, B, C)),
+                     geo.smem)
+    fn = _lib("ssd_scan", "repro_ssd_scan", [_i, ctypes.c_void_p, _vp])
     with torch.cuda.device(x.device):
-        err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(),
-                 A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
-                 state.data_ptr(), b, l, h, p, g, n, chunk,
-                 ctypes.cast(strides, ctypes.c_void_p), _stream(x))
+        err = fn(_DTYPE_CODE[x.dtype], ctypes.addressof(prm), _stream(x))
     _raise_on("ssd_scan", err)
     launches["ssd_scan"] += 1
     return y, state
+

@@ -186,6 +186,9 @@ def ssm_forward(p, x, cfg: ModelConfig, return_state: bool = False,
         # structural no-op on the SSD recurrence
         dt = dt * token_mask[..., None]
     A = -torch.exp(p["A_log"])
+    # the kernel raises for widths it does not hold (bfloat16: N above 256,
+    # P above 256, or 128 above N 128; float32: a state and two chunk
+    # tiles past a block's shared memory), which no config here reaches
     if (S % cfg.ssm_chunk == 0 and ssd_init is None and token_mask is None
             and not _differentiated(xs, dt, A, B, C)):
         y, state = kops.ssd_scan(xs, dt, A, B, C, chunk=cfg.ssm_chunk)

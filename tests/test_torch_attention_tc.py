@@ -226,7 +226,7 @@ def test_route_is_by_dtype():
     for name in ("flash_decode", "flash_decode_paged"):
         assert ops.route(name, torch.bfloat16) == "mma"
         assert ops.route(name, torch.float32) == "cuda-core"
-    assert ops.route("ssd_scan", torch.bfloat16) == "cuda-core"
+    assert ops.route("ssd_scan", torch.bfloat16) == "mma"
 
 
 @pytest.mark.parametrize("dk,dv", [(128, 128), (64, 64), (32, 32), (80, 64),
