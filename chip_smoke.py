@@ -5,6 +5,7 @@ Run from the repository root:
 
     python3 chip_smoke.py                  # every phase, as a release check
     python3 chip_smoke.py --only build,kernels,ssm
+    python3 chip_smoke.py --only build,kernels,hybrid,moe
     python3 chip_smoke.py --only build,kernels,pipeline
     python3 chip_smoke.py --only build,kernels,train --train-layers 2
     python3 chip_smoke.py --only build,kernels,serve --layers 2
@@ -38,12 +39,21 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
    `scaled_dot_product_attention` as the composite yardstick. Both decode
    kernels also at lengths on the edges of their splits (span - 1, span,
    span + 1 and a full cache, at pages 16 and 64), at hymba-1.5b's heads
-   (25/5, d_head 64) and at phi3-mini's (32/32, d_head 96).
+   (25/5, d_head 64), at phi3-mini's (32/32, d_head 96), `flash_decode` at
+   qwen3-32b's (64/8, d_head 128, CL 1024) and at the moe phase's decode
+   (granite-moe-1b-a400m's 16/8, d_head 64, CL 512). `prefill_attention`
+   and `flash_attention` also at the hybrid phase's admission chunk (16, C
+   64, 25/5 heads, CL 512, offset 320) and Preprocessor forward (16, S 512),
+   at the moe phase's (the same with 16/8 heads) and at phi3-mini's MHA
+   d_head 96 (1.5 tensor-core panels).
    The fused lm-head loss (forward, and the backward's `dh` and `dW`
    from one launch) against its vocab-blocked
    twin at granite-3-2b's head (N=4096 and the Preprocessor's N=8192,
    D=2048, V=49155), llama3-8b's head, mamba2-2.7b's (N=4096, D=2560,
-   V=50280), a tied (V,D) head and awkward V, N and dw_chunks; values by
+   V=50280), hymba-1.5b's (N=4096, D=1600, V=32001) and
+   granite-moe-1b-a400m's (N=4096, D=1024, V=49155), both again at their
+   Preprocessors' N=8192 (forward only), a tied (V,D) head and
+   awkward V, N and dw_chunks; values by
    max abs error (2e-5 / 2e-2), gradients by max abs error over the
    largest entry (1e-4 / 2e-2), with the unfused composite (logits,
    logsumexp, gather, entropy, autograd) as yardstick. In bfloat16 every
@@ -109,9 +119,39 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
    the stamps, finite behavior logprobs, the launches (`ssd_scan` = layers
    x Preprocessor calls, no attention kernel), and the Preprocessor's
    reference logprobs on one batch through the kernel against the plain
-   scan (relative RMS <= 5e-2 after 64 bf16 layers); one such
+   scan (the RMS error over the RMS of the plain logprobs about each
+   row's mean <= 5e-2 after 64 bf16 layers); one such
    Preprocessor call runs under the profiler, which reports the device
    ms of its 64 `ssd_scan` launches (`preprocess_profile`).
+8. hybrid: hymba-1.5b at full width and depth (`--hybrid-layers`, default
+   32; d 1600, 25/5 heads of 64, 50 SSM heads of 64, state 16, vocab
+   32001) in bfloat16 (fused loss, remat, random weights from seed 0):
+   `PipelineRL` on one paged engine as in pipeline (16 slots, max_len 512,
+   chunk 64, page 64, the paged kernel, prefix sharing over GRPO groups of
+   8, the group baseline), the Preprocessor (kl_coef 0.05) through
+   `flash_attention`, `ssd_scan` and the fused forward, the Trainer (lr
+   1e-3, 4 x 1024 packing), a broadcast streamed in 8 chunks, batch 16, 3
+   optimizer steps. It checks the steps, the swap, the stamps, finite
+   behavior logprobs, that the forks happened, the exact launches of every
+   kernel but `flash_decode`, the block tables, the Preprocessor's
+   reference logprobs through the kernels against the plain versions
+   (as in ssm), with planted faults as its controls (`flash_attention`
+   with a fifth of its heads zeroed in every layer, and in layer 0 alone,
+   must fail it; the scan's in every layer is read); then 16 prompts in two groups of 8 run 32
+   decode steps through a paged engine that forks them (the leader's conv
+   and SSD rows copied into its forks) and a slot engine, bit for bit.
+   One decode step, one prefill chunk and one Preprocessor call run under
+   the profiler.
+9. moe: granite-moe-1b-a400m at full width and depth (`--moe-layers`,
+   default 24; d 1024, 16/8 heads, 32 experts top 8 of d_ff 512, vocab
+   49155) in bfloat16 (fused loss, remat): `PipelineRL` on one slot engine
+   (16 slots, max_len 512, chunk 64), batch 16, 3 steps, 4 x 1024 packing,
+   a streamed broadcast. It checks what the hybrid phase checks that a
+   slot engine has, a finite positive `moe_aux` in every step's metrics,
+   and the Preprocessor against the plain versions with the attention
+   faults as controls; one decode step runs
+   under the profiler with each MoE layer marked, which gives the MoE
+   layers' share of its device time.
 
 The serve and pipeline profiles report the device ms and launches of the
 decode kernel in their profiled step (`kernels`).
@@ -143,7 +183,8 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("env", "build", "kernels", "serve", "train", "pipeline", "ssm")
+PHASES = ("env", "build", "kernels", "serve", "train", "pipeline", "ssm",
+          "hybrid", "moe")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores,
 # float32 outside the tensor cores, HBM3 bandwidth
@@ -511,6 +552,30 @@ def kernel_cases(dtype):
         # granite-3-2b's dense Preprocessor forward (bucket 512)
         ("flash_attention", "preprocess",
          lambda: flash_case(16, 32, 8, 512, 64, dtype, 19)),
+        # the hybrid phase's shapes, hymba-1.5b's 25/5 heads (rep 5, the
+        # prefill kernel's thread-copied Q): its admission chunk and its
+        # Preprocessor forward
+        ("prefill_attention", "hymba-admission",
+         lambda: prefill_case(16, 64, 25, 5, 512, 64, 64, 320, dtype, 27)),
+        ("flash_attention", "hymba-preprocess",
+         lambda: flash_case(16, 25, 5, 512, 64, dtype, 28)),
+        # phi3-mini's MHA at d_head 96 (1.5 tensor-core panels)
+        ("prefill_attention", "phi3-mha-d96",
+         lambda: prefill_case(4, 64, 32, 32, 512, 96, 96, 320, dtype, 29)),
+        ("flash_attention", "phi3-mha-d96",
+         lambda: flash_case(4, 32, 32, 512, 96, dtype, 30)),
+        # qwen3-32b's 64/8 heads at d_head 128, and the moe phase's decode
+        # (granite-moe-1b-a400m's 16/8 heads, d_head 64, max_len 512)
+        ("flash_decode", "qwen3-gqa-d128",
+         lambda: decode_case(16, 64, 8, 1024, 128, serve_lengths, dtype, 31)),
+        ("flash_decode", "granite-moe",
+         lambda: decode_case(16, 16, 8, 512, 64, pipe_lengths, dtype, 32)),
+        # the moe phase's admission chunk and Preprocessor forward
+        # (granite-moe-1b-a400m's 16/8 heads, rep 2, d_head 64)
+        ("prefill_attention", "granite-moe-admission",
+         lambda: prefill_case(16, 64, 16, 8, 512, 64, 64, 320, dtype, 33)),
+        ("flash_attention", "granite-moe-preprocess",
+         lambda: flash_case(16, 16, 8, 512, 64, dtype, 34)),
     ]
 
 
@@ -586,11 +651,20 @@ def fused_cases():
                             bwd=False)),
         ("llama3-8b-head", dict(N=1024, D=4096, V=128256, transpose=False)),
         ("mamba2-head", dict(N=4096, D=2560, V=50280, transpose=False)),
+        # the hybrid and moe phases' train batches: hymba-1.5b's head (V
+        # 32001, rows staged for TMA) and granite-moe-1b-a400m's
+        ("hymba-head", dict(N=4096, D=1600, V=32001, transpose=False)),
+        ("granite-moe-head", dict(N=4096, D=1024, V=49155, transpose=False)),
         ("tied-VD", dict(N=512, D=256, V=1000, transpose=True)),
         ("v50", dict(N=16, D=64, V=50, transpose=False)),
         ("v33-tied", dict(N=24, D=32, V=33, transpose=True)),
         ("ragged-n300", dict(N=300, D=128, V=777, transpose=False)),
         ("dw-chunks4", dict(N=520, D=64, V=300, transpose=True, dw_chunks=4)),
+        # the hybrid and moe Preprocessors' forward (16 x 512 tokens)
+        ("hymba-preprocess", dict(N=8192, D=1600, V=32001, transpose=False,
+                                  bwd=False)),
+        ("granite-moe-preprocess", dict(N=8192, D=1024, V=49155,
+                                        transpose=False, bwd=False)),
     ]
 
 
@@ -886,13 +960,15 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _profile(fn, dev, top: int = 8, match=None) -> dict:
+def _profile(fn, dev, top: int = 8, match=None, ranges=()) -> dict:
     """One call of `fn` under torch.profiler (CUPTI): wall time, the summed
     device time of its kernels, their share of the wall time (one stream,
     so kernels do not overlap; the profiler's own host cost is inside the
-    wall time), the kernels that take the most device time, and for each
+    wall time), the kernels that take the most device time, for each
     `match` entry (label: a substring of kernel names) the device ms and
-    launches of the kernels whose names hold it."""
+    launches of the kernels whose names hold it, and for each name in
+    `ranges` (a `torch.profiler.record_function` range inside `fn`) the
+    device ms of the kernels launched within it and its calls."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     _sync(dev)
@@ -904,8 +980,10 @@ def _profile(fn, dev, top: int = 8, match=None) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
-        # kernel rows only: an operator's row repeats its kernels' time
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # kernel rows only: an operator's row repeats its kernels' time,
+        # and a range's device row is its span on the timeline
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.key in ranges:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -916,6 +994,13 @@ def _profile(fn, dev, top: int = 8, match=None) -> dict:
     matched = {label: {"ms": sum(r[0] for r in rows if sub in r[1]),
                        "calls": sum(r[2] for r in rows if sub in r[1])}
                for label, sub in (match or {}).items()}
+    for name in ranges:
+        # a host range's device time: the kernels launched inside it
+        evs = [e for e in prof.events() if e.name == name
+               and e.device_type == torch.autograd.DeviceType.CPU]
+        ms = sum(e.device_time_total for e in evs) / 1e3
+        matched[name] = {"ms": ms, "calls": len(evs),
+                         "share_of_busy": ms / busy_ms if busy_ms else None}
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms if busy_ms else None,
             "kernels": matched,
@@ -1372,7 +1457,7 @@ def phase_train(gpu: str, n_layers: int, device="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the PipelineRL loop on paged engines
+# phases 6-9: the PipelineRL loops
 # ---------------------------------------------------------------------------
 
 PIPE_GROUP = 8            # GRPO group: each prompt is yielded 8 times
@@ -1383,30 +1468,36 @@ PIPE_CHECK_STEPS = 32     # decode steps of the paged-against-slots check
 PIPE_BCAST_STEPS = 8
 
 
-def _paged_against_slots(cfg, params, dev, n_prompts: int) -> dict:
+def _paged_against_slots(cfg, params, dev, n_prompts: int,
+                         group: int = 1) -> dict:
     """The same 16 prompts through a paged engine (page_size 64, the paged
-    kernel, no prefix sharing) and a slot engine at one seed, for
-    PIPE_CHECK_STEPS decode steps: tokens, behavior logprobs and version
-    stamps must agree bit for bit."""
+    kernel) and a slot engine at one seed, for PIPE_CHECK_STEPS decode
+    steps: tokens, behavior logprobs and version stamps must agree bit for
+    bit. With `group` > 1 the prompts come in groups of that many identical
+    ones and the paged engine shares their prefix: one prefill per group,
+    the rest forked (with a hybrid config, the leader's conv and SSD rows
+    copied into the forks)."""
     import dataclasses
 
     from repro_torch import EngineConfig, GenerationEngine
     from repro_torch.data.math_task import Problem
 
     rng = np.random.default_rng(1)
-    prompts = [rng.integers(3, cfg.vocab_size, int(n)).tolist()
-               for n in rng.integers(256, 385, n_prompts)]
+    prompts = [p for n in rng.integers(256, 385, n_prompts // group)
+               for p in [rng.integers(3, cfg.vocab_size, int(n)).tolist()]
+               * group]
     ec = EngineConfig(n_slots=n_prompts, max_len=512, prefill_chunk=64,
                       temperature=1.0)
-    out = {}
+    out, forks = {}, 0
     for name, e in (("slots", ec),
                     ("paged", dataclasses.replace(
                         ec, cache="paged", page_size=64,
-                        paged_attention="kernel", prefix_sharing=False))):
+                        paged_attention="kernel", prefix_sharing=group > 1))):
         it = iter([Problem(list(p), 0) for p in prompts])
         eng = GenerationEngine(cfg, params, e, lambda: next(it, None),
                                seed=7, device=dev)
         eng.refill()
+        forks += eng.prefix_forks
         times = []
         for _ in range(PIPE_CHECK_STEPS):
             t0 = time.perf_counter()
@@ -1416,7 +1507,8 @@ def _paged_against_slots(cfg, params, dev, n_prompts: int) -> dict:
                      eng.ver_buf.copy(), statistics.median(times[1:]) * 1e3)
         del eng
     (tS, lS, vS, mS), (tP, lP, vP, mP) = out["slots"], out["paged"]
-    return {"prompts": n_prompts, "decode_steps": PIPE_CHECK_STEPS,
+    return {"prompts": n_prompts, "group": group, "prefix_forks": forks,
+            "decode_steps": PIPE_CHECK_STEPS,
             "decode_step_ms_median": {"slots": mS, "paged": mP},
             "tokens_equal": bool(torch.equal(tS, tP)),
             "logprobs_bitwise": bool(torch.equal(lS, lP)),
@@ -1424,43 +1516,51 @@ def _paged_against_slots(cfg, params, dev, n_prompts: int) -> dict:
             "stamps_equal": bool((vS == vP).all())}
 
 
-def phase_pipeline(gpu: str, n_layers: int, device="cuda") -> dict:
-    """This slice's path on `device` (the card; a CPU run rehearses the
-    phase's logic at a reduced config and measures nothing): PipelineRL on
-    one paged engine with prefix-shared GRPO groups, the Preprocessor, the
-    trainer with the group baseline, and the streamed broadcast."""
-    import dataclasses
+# ---------------------------------------------------------------------------
+# the loop phases' shared pieces (pipeline, ssm, hybrid, moe)
+# ---------------------------------------------------------------------------
 
-    from repro_torch import (AdamConfig, EngineConfig, HardwareModel,
-                             PipelineConfig, PipelineRL, PreprocessConfig,
-                             Preprocessor, RLConfig, Trainer, get_config)
-    from repro_torch.core.weights import tree_bytes
-    from repro_torch.data.math_task import MathTask, Problem
-    from repro_torch.kernels import ops
-    from repro_torch.models import model as M
-
-    cfg = dataclasses.replace(get_config("granite-3-2b"), fused_loss=True,
-                              remat=True)
-    if n_layers != cfg.n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    dev = torch.device(device)
-    ec = EngineConfig(n_slots=16, max_len=512, prefill_chunk=64,
-                      cache="paged", page_size=64, paged_attention="kernel",
-                      prefix_sharing=True, temperature=1.0)
-    pc = PipelineConfig(batch_size=16, n_opt_steps=3, pack_rows=4,
-                        pack_seq=1024, n_engines=1, broadcast="streamed",
-                        broadcast_chunks=8, group_baseline=True)
-    rng = np.random.default_rng(0)
+def _grpo_source(rng, vocab_size: int):
+    """Prompts of 256-384 random ids in GRPO groups: each is yielded
+    PIPE_GROUP times in a row."""
+    from repro_torch.data.math_task import Problem
     group = {"left": 0, "prob": None}
 
     def source():
         if group["left"] == 0:
             n = int(rng.integers(256, 385))
-            group["prob"] = Problem(rng.integers(3, cfg.vocab_size,
-                                                 n).tolist(), 0)
+            group["prob"] = Problem(rng.integers(3, vocab_size, n).tolist(),
+                                    0)
             group["left"] = PIPE_GROUP
         group["left"] -= 1
         return group["prob"]
+
+    return source
+
+
+def _random_source(rng, vocab_size: int):
+    """Prompts of 256-384 random ids, each its own."""
+    from repro_torch.data.math_task import Problem
+
+    def source():
+        n = int(rng.integers(256, 385))
+        return Problem(rng.integers(3, vocab_size, n).tolist(), 0)
+
+    return source
+
+
+def _loop_parts(cfg, ec, pc, source, dev):
+    """A PipelineRL on one engine at `cfg` with random weights from seed 0,
+    its Trainer (lr 1e-3) and Preprocessor (kl_coef 0.05), and a broadcast
+    that takes PIPE_BCAST_STEPS decode steps on the simulated clock."""
+    import dataclasses
+
+    from repro_torch import (AdamConfig, HardwareModel, PipelineRL,
+                             PreprocessConfig, Preprocessor, RLConfig,
+                             Trainer)
+    from repro_torch.core.weights import tree_bytes
+    from repro_torch.data.math_task import MathTask
+    from repro_torch.models import model as M
 
     params = M.init_params(cfg, seed=0, device=dev)
     trainer = Trainer(cfg, params, rl=RLConfig(), adam=AdamConfig(lr=1e-3),
@@ -1474,41 +1574,71 @@ def phase_pipeline(gpu: str, n_layers: int, device="cuda") -> dict:
                              / (PIPE_BCAST_STEPS * base.step_cost(per_chip)))
     p = PipelineRL(cfg, params, MathTask(), ec, pc, hw=hw, trainer=trainer,
                    preprocessor=pre, prompt_source=source, device=dev)
-    eng = p.engine
+    return p, trainer, pre
 
-    # instrument the engine and the trainer (timing and counters only)
-    step_s, live_pages, refills, step_wall = [], [], [], []
-    raw_step, raw_refill, raw_train = eng.step, eng.refill, trainer.step
+
+def _run_loop(p, trainer, pre, dev) -> dict:
+    """Run `p` to its end with its engine's steps and refills, the
+    Preprocessor's forwards and the trainer's steps timed (host clock,
+    synced), the launch counts set to 0 just before the run and read just
+    after, and every delivered rollout kept. Each refill records the rows
+    it admitted, prefilled and forked and how many copies of each distinct
+    prompt it took; a paged engine's live pages are read after each step."""
+    from repro_torch.kernels import ops
+    eng = p.engine
+    rec = {"step_s": [], "chunk_ms": [], "refill_s": 0.0, "refills": [],
+           "live_pages": [], "pre_calls": [], "train": []}
+    raw_step, raw_refill = eng.step, eng.refill
+    raw_train, raw_ref = trainer.step, pre._ref_logprobs
+    t_start = [0.0]
 
     def timed_step(*a, **k):
         t0 = time.perf_counter()
         done = raw_step(*a, **k)
-        step_s.append(time.perf_counter() - t0)
-        live_pages.append(eng.allocator.live_pages)
+        rec["step_s"].append(time.perf_counter() - t0)
+        if eng.allocator is not None:
+            rec["live_pages"].append(eng.allocator.live_pages)
         return done
 
-    def counted_refill(*a, **k):
+    def timed_refill(*a, **k):
+        n_inv = eng.prefill_invocations
         pre_, fork_ = eng.prompt_prefills, eng.prefix_forks
         rows = np.where(~eng._host_active)[0]
+        t0 = time.perf_counter()
         n = raw_refill(*a, **k)
+        _sync(dev)
+        dt_s = time.perf_counter() - t0
+        rec["refill_s"] += dt_s
+        if eng.prefill_invocations > n_inv:
+            rec["chunk_ms"].append(dt_s * 1e3
+                                   / (eng.prefill_invocations - n_inv))
         if n:
             new = [tuple(eng.problems[s].prompt_ids) for s in rows
                    if eng._host_active[s]]
-            sizes = [new.count(key) for key in set(new)]
-            refills.append({"admitted": n, "distinct": len(sizes),
-                            "whole_groups": all(c == PIPE_GROUP
-                                                for c in sizes),
-                            "prefills": eng.prompt_prefills - pre_,
-                            "forks": eng.prefix_forks - fork_})
+            rec["refills"].append({
+                "admitted": n, "copies": sorted(new.count(key)
+                                                for key in set(new)),
+                "prefills": eng.prompt_prefills - pre_,
+                "forks": eng.prefix_forks - fork_})
         return n
+
+    def timed_ref(tokens, *a, **k):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = raw_ref(tokens, *a, **k)
+        _sync(dev)
+        rec["pre_calls"].append({"rows": int(tokens.shape[0]),
+                                 "bucket": int(tokens.shape[1]),
+                                 "ms": (time.perf_counter() - t0) * 1e3})
+        return out
 
     def timed_train(*a, **k):
         _sync(dev)
         t0 = time.perf_counter()
         m = raw_train(*a, **k)
         _sync(dev)
-        step_wall.append({"train_ms": (time.perf_counter() - t0) * 1e3,
-                          "at_s": time.perf_counter() - t_start})
+        rec["train"].append({"train_ms": (time.perf_counter() - t0) * 1e3,
+                             "at_s": time.perf_counter() - t_start[0]})
         return m
 
     actor = p.actors[0]
@@ -1518,114 +1648,315 @@ def phase_pipeline(gpu: str, n_layers: int, device="cuda") -> dict:
         seen.extend(rollouts)
         raw_deliver(rollouts, t)
 
-    eng.step, eng.refill, trainer.step = timed_step, counted_refill, \
-        timed_train
+    eng.step, eng.refill = timed_step, timed_refill
+    trainer.step, pre._ref_logprobs = timed_train, timed_ref
     actor.deliver = kept_deliver
     ops.reset_launches()
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    t_start = time.perf_counter()
+    t_start[0] = time.perf_counter()
     log = p.run()
     _sync(dev)
-    run_s = time.perf_counter() - t_start
-    launches = dict(ops.launches)
-    tokens = eng.tokens_generated
-    peak_gb = (torch.cuda.max_memory_allocated(dev) / 2**30
-               if dev.type == "cuda" else None)
+    rec["run_s"] = time.perf_counter() - t_start[0]
+    rec["launches"] = dict(ops.launches)
+    rec["peak_mem_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                           if dev.type == "cuda" else None)
     # back to the class's methods: an instance attribute holding a bound
     # method of its own object would be a reference cycle
-    del eng.step, eng.refill, trainer.step
+    del eng.step, eng.refill, trainer.step, pre._ref_logprobs
     actor.deliver = raw_deliver
+    rec.update(log=log, seen=seen, tokens=eng.tokens_generated)
+    return rec
 
-    # --- checks on what came out
-    bad = []
+
+def _loop_checks(rec, p) -> tuple:
+    """The checks every loop phase makes: three optimizer steps with finite
+    losses, a completed streamed swap, non-decreasing stamps, finite
+    behavior logprobs <= 0. Returns (failures, the steps' record)."""
+    log, seen, bad = rec["log"], rec["seen"], []
     steps = [{"version": r["version"], "wall_s": w["at_s"],
               "train_ms": w["train_ms"], "sim_time": r["time"],
               "reward": r["reward"], "ess": r["ess"], "max_lag": r["max_lag"],
-              "loss": r["loss"]} for r, w in zip(log, step_wall)]
+              "loss": r["loss"]} for r, w in zip(log, rec["train"])]
     if [r["version"] for r in log] != [1, 2, 3]:
         bad.append(f"optimizer steps {[r['version'] for r in log]}")
     if not all(np.isfinite(r["loss"]) for r in log):
         bad.append(f"losses {[r['loss'] for r in log]}")
     bs = p.broadcast_stats()
-    if eng.version < 1 or bs["engines"][0]["streams_completed"] < 1:
-        bad.append(f"engine version {eng.version}, broadcast {bs}")
-    # every finished rollout: stamps never decrease; at random weights no
-    # answer is correct (a rollout that runs to max_len scores 0 less the
-    # task's soft length penalty, 0.4)
-    stamps_ok = all((np.diff(r.weight_versions) >= 0).all() for r in seen)
-    if not stamps_ok:
+    if p.engine.version < 1 or bs["engines"][0]["streams_completed"] < 1:
+        bad.append(f"engine version {p.engine.version}, broadcast {bs}")
+    if not all((np.diff(r.weight_versions) >= 0).all() for r in seen):
         bad.append("a rollout's version stamps decrease")
-    versions = sorted({int(v) for r in seen
-                       for v in r.weight_versions[r.prompt_len:]})
-    correct = sum(r.reward >= 1.0 for r in seen)
-    whole = [f for f in refills if f["whole_groups"]]
-    for f in refills:
-        if f["prefills"] != f["distinct"] \
-                or f["forks"] != f["admitted"] - f["distinct"]:
+    lp_ok = all(np.isfinite(r.behavior_logprobs).all()
+                and (r.behavior_logprobs[r.prompt_len:] <= 0).all()
+                for r in seen)
+    if not seen or not lp_ok:
+        bad.append(f"behavior logprobs of {len(seen)} rollouts not finite "
+                   f"and <= 0")
+    return bad, steps
+
+
+def _fork_checks(rec, eng) -> list:
+    """A prefix-sharing engine's refills: every distinct prompt prefilled
+    once, its copies forked (PIPE_GROUP - 1 forks per prefill for whole
+    groups); the block tables hold; `reset_slots` returns every page."""
+    bad = []
+    for f in rec["refills"]:
+        if f["prefills"] != len(f["copies"]) \
+                or f["forks"] != f["admitted"] - len(f["copies"]):
             bad.append(f"refill {f}: identical prompts were not forked")
-    forks_whole = sum(f["forks"] for f in whole)
-    prefills_whole = sum(f["prefills"] for f in whole)
-    if not whole or forks_whole != (PIPE_GROUP - 1) * prefills_whole:
-        bad.append(f"whole groups: {prefills_whole} prefills, "
-                   f"{forks_whole} forks")
-    # one paged decode step of the running engine under the profiler
-    profile = (_profile(lambda: eng.step(), dev,
-                        match={"flash_decode_paged": DECODE_PAGED})
-               if dev.type == "cuda" else None)
+    whole = [f for f in rec["refills"]
+             if all(c == PIPE_GROUP for c in f["copies"])]
+    forks = sum(f["forks"] for f in whole)
+    prefills = sum(f["prefills"] for f in whole)
+    if not whole or forks != (PIPE_GROUP - 1) * prefills:
+        bad.append(f"whole groups: {prefills} prefills, {forks} forks")
     try:
         eng.tables.check()
     except AssertionError as e:
         bad.append(f"block tables: {e}")
-    pages = {"live_at_end": eng.allocator.live_pages,
-             "peak_live": max(live_pages, default=0),
-             "pool": eng.allocator.n_pages}
     eng.reset_slots()
     if eng.allocator.free_pages != eng.allocator.n_pages - 1:
         bad.append(f"reset_slots left {eng.allocator.live_pages} pages live")
-    for name in ("flash_decode_paged", "prefill_attention", "flash_attention",
-                 "fused_logprob_fwd", "fused_logprob_bwd"):
-        if launches[name] <= 0:
-            bad.append(f"{name} was never launched on the pipeline path")
+    return bad
+
+
+def _want_launches(cfg, rec, decode_kernel: str | None) -> dict:
+    """Launches the loop must have made: the decode kernel once per layer
+    per decode step, `flash_attention` per layer per Preprocessor call,
+    `ssd_scan` per layer per call whose bucket the scan's gate takes, the
+    fused forward per Preprocessor call and train step, its backward per
+    train step (`prefill_attention` is held to the prefill chunks apart)."""
+    calls = rec["pre_calls"]
+    want = {"fused_logprob_fwd": len(calls) + len(rec["train"]),
+            "fused_logprob_bwd": len(rec["train"])}
+    if cfg.has_attention:
+        want[decode_kernel] = cfg.n_layers * len(rec["step_s"])
+        want["flash_attention"] = cfg.n_layers * len(calls)
+    if cfg.has_ssm:
+        want["ssd_scan"] = cfg.n_layers * sum(
+            c["bucket"] % cfg.ssm_chunk == 0 for c in calls)
+    return want
+
+
+def _launch_checks(cfg, rec, eng, want) -> list:
+    bad = [f"{name}: {rec['launches'][name]} launches, expected {n}"
+           for name, n in want.items() if rec["launches"][name] != n]
+    chunks = cfg.n_layers * eng.prefill_invocations if cfg.has_attention \
+        else 0
+    if rec["launches"]["prefill_attention"] != chunks:
+        bad.append(f"prefill_attention: {rec['launches']['prefill_attention']}"
+                   f" launches for {eng.prefill_invocations} chunks")
+    off_path = [k for k in KERNELS if k not in want
+                and k != "prefill_attention" and rec["launches"][k]]
+    if off_path:
+        bad.append(f"kernels off the path launched: {off_path}")
+    return bad
+
+
+PRE_TOL = 5e-2
+
+
+def _preprocess_against_plain(pre, batch, faults=()) -> dict:
+    """The Preprocessor's reference logprobs on `batch` through the kernels
+    against the same through their plain versions (on copies: `process`
+    writes its results into the rollouts). The measure is the RMS error
+    over the RMS of the plain logprobs less each row's mean, <= PRE_TOL:
+    with random weights a logprob is mostly its row's -log V offset, which
+    no fault of the model's layers moves, so the spread about the mean is
+    the scale of what the layers decide (`rel_rms`, over the raw RMS, is
+    reported too). Each of `faults`, a (label, context manager, gate)
+    triple, plants a fault in the kernel path as a control; the measure
+    must fail each one whose gate is set, and reads the others to show
+    what it cannot see."""
+    import dataclasses
+
+    def ref_logprobs():
+        done = pre.process([dataclasses.replace(r) for r in batch])
+        return [r.ref_logprobs for r in done]
+
+    rows_k = ref_logprobs()
+    with plain_kernels():
+        rows_p = ref_logprobs()
+    lp_p = np.concatenate(rows_p)
+    spread = np.linalg.norm(np.concatenate([r - r.mean() for r in rows_p]))
+
+    def measure(rows):
+        d = np.concatenate(rows) - lp_p
+        return {"rel_rms_centered": float(np.linalg.norm(d) / spread),
+                "rel_rms": float(np.linalg.norm(d) / np.linalg.norm(lp_p)),
+                "rms_err": float(np.sqrt(np.mean(d * d))),
+                "max_err": float(np.abs(d).max())}
+
+    check = {"rows": len(batch), **measure(rows_k),
+             "plain_rms_centered": float(spread / np.sqrt(lp_p.size)),
+             "tol_rel_rms_centered": PRE_TOL}
+    check["ok"] = check["rel_rms_centered"] <= PRE_TOL
+    check["planted_faults"] = []
+    for label, fault, gate in faults:
+        with fault:
+            got = measure(ref_logprobs())
+        got.update(fault=label, gate=gate,
+                   caught=got["rel_rms_centered"] > PRE_TOL)
+        check["planted_faults"].append(got)
+        check["ok"] = check["ok"] and (got["caught"] or not gate)
+    return check
+
+
+def _faults(cfg) -> list:
+    """The path check's controls. Gated: `flash_attention` with a fifth of
+    its heads zeroed in every layer (a kernel's fault hits every call) and
+    in layer 0 alone. Read only, for a config with an SSM branch: the
+    scan's fault in every layer, which random weights hide (the scan's
+    term of y is a vanishing share of the D x skip's, PERF.md)."""
+    L, what = cfg.n_layers, "a fifth of the heads zeroed in"
+    out = [(f"flash_attention, {what} every layer",
+            planted_fault("flash_attention", L), True),
+           (f"flash_attention, {what} layer 0",
+            planted_fault("flash_attention", L, 0), True)]
+    if cfg.has_ssm:
+        out.append((f"ssd_scan, {what} every layer",
+                    planted_fault("ssd_scan", L), False))
+    return out
+
+
+@contextlib.contextmanager
+def planted_fault(kernel: str, n_layers: int, layer=None):
+    """A control for the path check: `ops.<kernel>` (`flash_attention` or
+    `ssd_scan`, called once per layer of a forward, in order) with its
+    first fifth of heads' output zeroed in layer `layer`, or in every
+    layer."""
+    from repro_torch.kernels import ops
+    saved = getattr(ops, kernel)
+    calls = [0]
+
+    def faulty(*a, **k):
+        out = saved(*a, **k)
+        calls[0] += 1
+        if layer is None or (calls[0] - 1) % n_layers == layer:
+            y, dim = ((out, 1) if kernel == "flash_attention"
+                      else (out[0], 2))
+            y.narrow(dim, 0, max(1, y.shape[dim] // 5)).zero_()
+        return out
+
+    setattr(ops, kernel, faulty)
+    try:
+        yield
+    finally:
+        setattr(ops, kernel, saved)
+
+
+def _loop_result(phase, gpu, cfg, ec, pc, rec, steps, p) -> dict:
+    """The measures every loop phase reports."""
+    import dataclasses
+    steady = rec["step_s"][1:]
+    pre_calls = rec["pre_calls"]
+    bs = p.broadcast_stats()
+    return {"phase": phase, "gpu": gpu, "config": cfg.name,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads], "d_head": cfg.d_head,
+            "vocab": cfg.vocab_size,
+            "dtype": str(cfg.dtype).replace("torch.", ""),
+            "engine": dataclasses.asdict(ec),
+            "pipeline": {k: v for k, v in dataclasses.asdict(pc).items()
+                         if k != "health"},
+            "bcast_bytes_per_flash": p.hw.bcast_bytes_per_flash,
+            "run_s": rec["run_s"], "opt_steps": steps,
+            "rollouts": len(rec["seen"]),
+            "rollouts_correct": sum(r.reward >= 1.0 for r in rec["seen"]),
+            "rollout_versions": sorted(
+                {int(v) for r in rec["seen"]
+                 for v in r.weight_versions[r.prompt_len:]}),
+            "decode_steps": len(rec["step_s"]),
+            "decode_step_ms_median": (statistics.median(steady) * 1e3
+                                      if steady else None),
+            "generated_tokens_per_s": rec["tokens"] / sum(rec["step_s"]),
+            "tokens_generated": rec["tokens"],
+            "decode_s": sum(rec["step_s"]), "refill_s": rec["refill_s"],
+            "prefill_invocations": p.engine.prefill_invocations,
+            "prefill_chunk_ms_median": (statistics.median(rec["chunk_ms"])
+                                        if rec["chunk_ms"] else None),
+            "preprocess_calls": pre_calls,
+            "preprocess_ms_per_call": (statistics.median(
+                [c["ms"] for c in pre_calls]) if pre_calls else None),
+            "train_step_ms": [w["train_ms"] for w in rec["train"]],
+            "engine_version": p.engine.version,
+            "broadcast": {"pause_per_update":
+                          bs["engines"][0]["pause_per_update"],
+                          "streams_completed":
+                          bs["engines"][0]["streams_completed"],
+                          "published": bs["published"]},
+            "peak_mem_gib": rec["peak_mem_gib"],
+            "launches": rec["launches"]}
+
+
+def _paged_result(rec, eng) -> dict:
+    """A prefix-sharing paged engine's counters, read before its reset."""
+    return {"prompt_prefills": eng.prompt_prefills,
+            "prefix_forks": eng.prefix_forks,
+            "pages_copied": eng.pages_copied,
+            "slots_preempted": eng.slots_preempted,
+            "pages": {"live_at_end": eng.allocator.live_pages,
+                      "peak_live": max(rec["live_pages"], default=0),
+                      "pool": eng.allocator.n_pages},
+            "refills": rec["refills"]}
+
+
+def _finish(phase, res, bad) -> dict:
+    res["failures"] = bad
+    emit(res)
+    if bad:
+        raise SystemExit(f"{phase} phase failed: " + "; ".join(bad))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the PipelineRL loop on paged engines
+# ---------------------------------------------------------------------------
+
+def phase_pipeline(gpu: str, n_layers: int, device="cuda") -> dict:
+    """This slice's path on `device` (the card; a CPU run rehearses the
+    phase's logic at a reduced config and measures nothing): PipelineRL on
+    one paged engine with prefix-shared GRPO groups, the Preprocessor, the
+    trainer with the group baseline, and the streamed broadcast."""
+    import dataclasses
+
+    from repro_torch import EngineConfig, PipelineConfig, get_config
+
+    cfg = dataclasses.replace(get_config("granite-3-2b"), fused_loss=True,
+                              remat=True)
+    if n_layers != cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    dev = torch.device(device)
+    ec = EngineConfig(n_slots=16, max_len=512, prefill_chunk=64,
+                      cache="paged", page_size=64, paged_attention="kernel",
+                      prefix_sharing=True, temperature=1.0)
+    pc = PipelineConfig(batch_size=16, n_opt_steps=3, pack_rows=4,
+                        pack_seq=1024, n_engines=1, broadcast="streamed",
+                        broadcast_chunks=8, group_baseline=True)
+    p, trainer, pre = _loop_parts(
+        cfg, ec, pc, _grpo_source(np.random.default_rng(0), cfg.vocab_size),
+        dev)
+    eng = p.engine
+    rec = _run_loop(p, trainer, pre, dev)
+    bad, steps = _loop_checks(rec, p)
+    want = _want_launches(cfg, rec, "flash_decode_paged")
+    bad += _launch_checks(cfg, rec, eng, want)
+    # one paged decode step of the running engine under the profiler
+    profile = (_profile(lambda: eng.step(), dev,
+                        match={"flash_decode_paged": DECODE_PAGED})
+               if dev.type == "cuda" else None)
+    res = _loop_result("pipeline", gpu, cfg, ec, pc, rec, steps, p)
+    res.update(_paged_result(rec, eng))
+    bad += _fork_checks(rec, eng)
     check = _paged_against_slots(cfg, trainer.params, dev, ec.n_slots)
     if not (check["tokens_equal"] and check["logprobs_bitwise"]
             and check["stamps_equal"]):
         bad.append(f"paged against slots: {check}")
-    steady = step_s[1:]
-    res = {"phase": "pipeline", "gpu": gpu, "config": cfg.name,
-           "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "dtype": str(cfg.dtype).replace("torch.", ""),
-           "engine": dataclasses.asdict(ec),
-           "pipeline": {k: v for k, v in dataclasses.asdict(pc).items()
-                        if k != "health"},
-           "bcast_bytes_per_flash": hw.bcast_bytes_per_flash,
-           "run_s": run_s, "opt_steps": steps,
-           "rollouts": len(seen), "rollouts_correct": correct,
-           "rollout_versions": versions,
-           "decode_steps": len(step_s),
-           "decode_step_ms_median": (statistics.median(steady) * 1e3
-                                     if steady else None),
-           "generated_tokens_per_s": tokens / sum(step_s),
-           "tokens_generated": tokens,
-           "prompt_prefills": eng.prompt_prefills,
-           "prefix_forks": eng.prefix_forks,
-           "pages_copied": eng.pages_copied,
-           "slots_preempted": eng.slots_preempted, "pages": pages,
-           "refills": refills, "engine_version": eng.version,
-           "broadcast": {"pause_per_update":
-                         bs["engines"][0]["pause_per_update"],
-                         "streams_completed":
-                         bs["engines"][0]["streams_completed"],
-                         "published": bs["published"]},
-           "stamps_nondecreasing": stamps_ok,
-           "peak_mem_gib": peak_gb, "launches": launches,
-           "paged_against_slots": check, "profile": profile,
-           "failures": bad}
-    emit(res)
-    if bad:
-        raise SystemExit("pipeline phase failed: " + "; ".join(bad))
-    return res
+    res.update(expected_launches=want, paged_against_slots=check,
+               profile=profile)
+    return _finish("pipeline", res, bad)
 
 
 # ---------------------------------------------------------------------------
@@ -1653,13 +1984,7 @@ def phase_ssm(gpu: str, n_layers: int, device="cuda") -> dict:
     the plain chunked SSD, and the streamed broadcast."""
     import dataclasses
 
-    from repro_torch import (AdamConfig, EngineConfig, HardwareModel,
-                             PipelineConfig, PipelineRL, PreprocessConfig,
-                             Preprocessor, RLConfig, Trainer, get_config)
-    from repro_torch.core.weights import tree_bytes
-    from repro_torch.data.math_task import MathTask, Problem
-    from repro_torch.kernels import ops
-    from repro_torch.models import model as M
+    from repro_torch import EngineConfig, PipelineConfig, get_config
 
     cfg = dataclasses.replace(get_config("mamba2-2.7b"), fused_loss=True,
                               remat=True)
@@ -1671,203 +1996,201 @@ def phase_ssm(gpu: str, n_layers: int, device="cuda") -> dict:
     pc = PipelineConfig(batch_size=16, n_opt_steps=3, pack_rows=4,
                         pack_seq=1024, n_engines=1, broadcast="streamed",
                         broadcast_chunks=8)
-    rng = np.random.default_rng(0)
-
-    def source():
-        n = int(rng.integers(256, 385))
-        return Problem(rng.integers(3, cfg.vocab_size, n).tolist(), 0)
-
-    params = M.init_params(cfg, seed=0, device=dev)
-    trainer = Trainer(cfg, params, rl=RLConfig(), adam=AdamConfig(lr=1e-3),
-                      device=dev)
-    pre = Preprocessor(cfg, params, PreprocessConfig(kl_coef=0.05,
-                                                     max_len=ec.max_len),
-                       device=dev)
-    base = HardwareModel()
-    per_chip = ec.n_slots / (pc.n_chips - pc.train_chips)
-    hw = dataclasses.replace(base, bcast_bytes_per_flash=tree_bytes(params)
-                             / (PIPE_BCAST_STEPS * base.step_cost(per_chip)))
-    p = PipelineRL(cfg, params, MathTask(), ec, pc, hw=hw, trainer=trainer,
-                   preprocessor=pre, prompt_source=source, device=dev)
+    p, trainer, pre = _loop_parts(
+        cfg, ec, pc, _random_source(np.random.default_rng(0),
+                                    cfg.vocab_size), dev)
     eng = p.engine
-
-    # instrument the engine, the Preprocessor and the trainer (timing and
-    # counters only)
-    step_s, step_wall, pre_calls, chunk_ms = [], [], [], []
-    refill_s = [0.0]
-    raw_step, raw_train, raw_ref = eng.step, trainer.step, pre._ref_logprobs
-    raw_refill = eng.refill
-
-    def timed_step(*a, **k):
-        t0 = time.perf_counter()
-        done = raw_step(*a, **k)
-        step_s.append(time.perf_counter() - t0)
-        return done
-
-    def timed_refill(*a, **k):
-        n_inv = eng.prefill_invocations
-        t0 = time.perf_counter()
-        n = raw_refill(*a, **k)
-        _sync(dev)
-        dt_s = time.perf_counter() - t0
-        refill_s[0] += dt_s
-        if eng.prefill_invocations > n_inv:
-            chunk_ms.append(dt_s * 1e3 / (eng.prefill_invocations - n_inv))
-        return n
-
-    def timed_ref(tokens, *a, **k):
-        _sync(dev)
-        t0 = time.perf_counter()
-        out = raw_ref(tokens, *a, **k)
-        _sync(dev)
-        pre_calls.append({"rows": int(tokens.shape[0]),
-                          "bucket": int(tokens.shape[1]),
-                          "ms": (time.perf_counter() - t0) * 1e3})
-        return out
-
-    def timed_train(*a, **k):
-        _sync(dev)
-        t0 = time.perf_counter()
-        m = raw_train(*a, **k)
-        _sync(dev)
-        step_wall.append({"train_ms": (time.perf_counter() - t0) * 1e3,
-                          "at_s": time.perf_counter() - t_start})
-        return m
-
-    actor = p.actors[0]
-    seen, raw_deliver = [], actor.deliver
-
-    def kept_deliver(rollouts, t):
-        seen.extend(rollouts)
-        raw_deliver(rollouts, t)
-
-    eng.step, trainer.step, pre._ref_logprobs = timed_step, timed_train, \
-        timed_ref
-    eng.refill = timed_refill
-    actor.deliver = kept_deliver
-    ops.reset_launches()
-    _sync(dev)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    t_start = time.perf_counter()
-    log = p.run()
-    _sync(dev)
-    run_s = time.perf_counter() - t_start
-    launches = dict(ops.launches)
-    tokens = eng.tokens_generated
-    peak_gb = (torch.cuda.max_memory_allocated(dev) / 2**30
-               if dev.type == "cuda" else None)
-    del eng.step, eng.refill, trainer.step, pre._ref_logprobs
-    actor.deliver = raw_deliver
-
-    # --- checks on what came out
-    bad = []
-    steps = [{"version": r["version"], "wall_s": w["at_s"],
-              "train_ms": w["train_ms"], "sim_time": r["time"],
-              "reward": r["reward"], "ess": r["ess"], "max_lag": r["max_lag"],
-              "loss": r["loss"]} for r, w in zip(log, step_wall)]
-    if [r["version"] for r in log] != [1, 2, 3]:
-        bad.append(f"optimizer steps {[r['version'] for r in log]}")
-    if not all(np.isfinite(r["loss"]) for r in log):
-        bad.append(f"losses {[r['loss'] for r in log]}")
-    bs = p.broadcast_stats()
-    if eng.version < 1 or bs["engines"][0]["streams_completed"] < 1:
-        bad.append(f"engine version {eng.version}, broadcast {bs}")
-    stamps_ok = all((np.diff(r.weight_versions) >= 0).all() for r in seen)
-    if not stamps_ok:
-        bad.append("a rollout's version stamps decrease")
-    lp_ok = all(np.isfinite(r.behavior_logprobs).all()
-                and (r.behavior_logprobs[r.prompt_len:] <= 0).all()
-                for r in seen)
-    if not seen or not lp_ok:
-        bad.append(f"behavior logprobs of {len(seen)} rollouts not finite "
-                   f"and <= 0")
-    versions = sorted({int(v) for r in seen
-                       for v in r.weight_versions[r.prompt_len:]})
-    # the scan kernel runs once per layer in every Preprocessor forward
-    # whose bucket is a multiple of the chunk (ssm_forward's gate)
-    gated = sum(c["bucket"] % cfg.ssm_chunk == 0 for c in pre_calls)
-    want = {"ssd_scan": cfg.n_layers * gated,
-            "fused_logprob_fwd": len(pre_calls) + len(step_wall),
-            "fused_logprob_bwd": len(step_wall)}
-    for name, n in want.items():
-        if launches[name] != n:
-            bad.append(f"{name}: {launches[name]} launches, expected {n}")
-    if not gated:
-        bad.append(f"no Preprocessor call took the scan kernel: {pre_calls}")
-    attn = {k: launches[k] for k in ("flash_decode", "flash_decode_paged",
-                                     "prefill_attention", "flash_attention")}
-    if any(attn.values()):
-        bad.append(f"attention kernels launched on an attention-free model: "
-                   f"{attn}")
-
-    # --- the Preprocessor's reference logprobs on one batch through the
-    # kernel, against the same with the plain scan (on copies: `process`
-    # writes its results into the rollouts)
-    batch = seen[:pc.batch_size]
-
-    def ref_logprobs():
-        done = pre.process([dataclasses.replace(r) for r in batch])
-        return np.concatenate([r.ref_logprobs for r in done])
-
-    lp_k = ref_logprobs()
-    # one Preprocessor call under the profiler: the device ms of its
-    # `ssd_scan` launches (one per layer)
-    pre_profile = (_profile(ref_logprobs, dev, match={"ssd_scan": "ssd::"})
-                   if dev.type == "cuda" else None)
-    with plain_ssd():
-        lp_p = ref_logprobs()
-    d = lp_k - lp_p
-    check = {"rows": len(batch),
-             "rel_rms": float(np.linalg.norm(d) / np.linalg.norm(lp_p)),
-             "max_err": float(np.abs(d).max()), "tol_rel_rms": 5e-2}
-    check["ok"] = check["rel_rms"] <= 5e-2
+    rec = _run_loop(p, trainer, pre, dev)
+    bad, steps = _loop_checks(rec, p)
+    want = _want_launches(cfg, rec, None)
+    bad += _launch_checks(cfg, rec, eng, want)
+    if not want["ssd_scan"]:
+        bad.append(f"no Preprocessor call took the scan kernel: "
+                   f"{rec['pre_calls']}")
+    batch = rec["seen"][:pc.batch_size]
+    check = _preprocess_against_plain(pre, batch)
     if not check["ok"]:
         bad.append(f"Preprocessor kernel against plain: {check}")
-    # one decode step of the running engine under the profiler
-    profile = _profile(lambda: eng.step(), dev) if dev.type == "cuda" \
-        else None
-    steady = step_s[1:]
-    res = {"phase": "ssm", "gpu": gpu, "config": cfg.name,
-           "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "ssm": {"heads": cfg.n_ssm_heads, "head_dim": cfg.ssm_head_dim,
-                   "groups": cfg.ssm_n_groups, "state": cfg.ssm_state,
-                   "chunk": cfg.ssm_chunk, "d_conv": cfg.d_conv},
-           "vocab": cfg.vocab_size,
-           "dtype": str(cfg.dtype).replace("torch.", ""),
-           "engine": dataclasses.asdict(ec),
-           "pipeline": {k: v for k, v in dataclasses.asdict(pc).items()
-                        if k != "health"},
-           "run_s": run_s, "opt_steps": steps, "rollouts": len(seen),
-           "rollout_versions": versions, "decode_steps": len(step_s),
-           "decode_step_ms_median": (statistics.median(steady) * 1e3
-                                     if steady else None),
-           "generated_tokens_per_s": tokens / sum(step_s),
-           "tokens_generated": tokens,
-           "decode_s": sum(step_s),
-           "prefill_invocations": eng.prefill_invocations,
-           "refill_s": refill_s[0],
-           "prefill_chunk_ms_median": (statistics.median(chunk_ms)
-                                       if chunk_ms else None),
-           "preprocess_calls": pre_calls,
-           "preprocess_ms_per_call": (statistics.median(
-               [c["ms"] for c in pre_calls]) if pre_calls else None),
-           "train_step_ms": [w["train_ms"] for w in step_wall],
-           "engine_version": eng.version,
-           "broadcast": {"pause_per_update":
-                         bs["engines"][0]["pause_per_update"],
-                         "streams_completed":
-                         bs["engines"][0]["streams_completed"],
-                         "published": bs["published"]},
-           "stamps_nondecreasing": stamps_ok, "peak_mem_gib": peak_gb,
-           "launches": launches, "expected_launches": want,
-           "preprocess_kernel_vs_plain": check, "profile": profile,
-           "preprocess_profile": pre_profile,
-           "failures": bad}
-    emit(res)
-    if bad:
-        raise SystemExit("ssm phase failed: " + "; ".join(bad))
-    return res
+    pre_profile = profile = None
+    if dev.type == "cuda":
+        # one Preprocessor call under the profiler: the device ms of its
+        # `ssd_scan` launches (one per layer); one decode step of the
+        # running engine
+        pre_profile = _profile(lambda: pre.process(
+            [dataclasses.replace(r) for r in batch]), dev,
+            match={"ssd_scan": "ssd::"})
+        profile = _profile(lambda: eng.step(), dev)
+    res = _loop_result("ssm", gpu, cfg, ec, pc, rec, steps, p)
+    res.update(ssm={"heads": cfg.n_ssm_heads, "head_dim": cfg.ssm_head_dim,
+                    "groups": cfg.ssm_n_groups, "state": cfg.ssm_state,
+                    "chunk": cfg.ssm_chunk, "d_conv": cfg.d_conv},
+               expected_launches=want, preprocess_kernel_vs_plain=check,
+               profile=profile, preprocess_profile=pre_profile)
+    return _finish("ssm", res, bad)
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9: hybrid (Hymba) and MoE through the PipelineRL loop
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the model's attention, SSD scan and fused loss through their
+    plain versions, on the card, for one comparison."""
+    with plain_attention(), plain_ssd(), plain_fused_loss():
+        yield
+
+
+@contextlib.contextmanager
+def moe_range():
+    """Mark every MoE layer's call as a profiler range, "moe_apply"."""
+    from repro_torch.models import moe
+    raw = moe.moe_apply
+
+    def ranged(*a, **k):
+        with torch.profiler.record_function("moe_apply"):
+            return raw(*a, **k)
+
+    moe.moe_apply = ranged
+    try:
+        yield
+    finally:
+        moe.moe_apply = raw
+
+
+HYBRID_PROFILE = {"flash_decode_paged": DECODE_PAGED,
+                  "prefill_attention": "prefill_attention_tc",
+                  "flash_attention": "flash_attention_tc",
+                  "ssd_scan": "ssd::", "fused_logprob_fwd": "fwd_kernel"}
+
+
+def phase_hybrid(gpu: str, n_layers: int, device="cuda") -> dict:
+    """The hybrid path on `device` (the card; a CPU run rehearses the
+    phase's logic at a reduced config and measures nothing): PipelineRL on
+    hymba-1.5b, one paged engine (the paged decode kernel, prefix-shared
+    GRPO groups whose forks copy the leader's SSM rows), the Preprocessor
+    through `flash_attention`, `ssd_scan` and the fused forward, the Trainer
+    through the fused loss, and the streamed broadcast."""
+    import dataclasses
+
+    from repro_torch import EngineConfig, PipelineConfig, get_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), fused_loss=True,
+                              remat=True)
+    if n_layers != cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    dev = torch.device(device)
+    ec = EngineConfig(n_slots=16, max_len=512, prefill_chunk=64,
+                      cache="paged", page_size=64, paged_attention="kernel",
+                      prefix_sharing=True, temperature=1.0)
+    pc = PipelineConfig(batch_size=16, n_opt_steps=3, pack_rows=4,
+                        pack_seq=1024, n_engines=1, broadcast="streamed",
+                        broadcast_chunks=8, group_baseline=True)
+    p, trainer, pre = _loop_parts(
+        cfg, ec, pc, _grpo_source(np.random.default_rng(0), cfg.vocab_size),
+        dev)
+    eng = p.engine
+    rec = _run_loop(p, trainer, pre, dev)
+    bad, steps = _loop_checks(rec, p)
+    want = _want_launches(cfg, rec, "flash_decode_paged")
+    bad += _launch_checks(cfg, rec, eng, want)
+    batch = rec["seen"][:pc.batch_size]
+    check = _preprocess_against_plain(pre, batch, faults=_faults(cfg))
+    if not check["ok"]:
+        bad.append(f"Preprocessor kernels against plain: {check}")
+    profile = None
+    if dev.type == "cuda":
+        admit = torch.zeros(ec.n_slots, dtype=torch.bool, device=dev)
+        st = eng.state
+        profile = {
+            "decode_step": _profile(lambda: eng.step(), dev,
+                                    match=HYBRID_PROFILE),
+            "prefill_chunk": _profile(lambda: M.prefill_chunk(
+                eng.params, st["tokens"], st["prompt_len"], 256, admit,
+                st["cache"], cfg, chunk=ec.prefill_chunk,
+                block_tables=eng._bt), dev, match=HYBRID_PROFILE),
+            "preprocess": _profile(lambda: pre.process(
+                [dataclasses.replace(r) for r in batch]), dev,
+                match=HYBRID_PROFILE)}
+    res = _loop_result("hybrid", gpu, cfg, ec, pc, rec, steps, p)
+    res.update(_paged_result(rec, eng))
+    bad += _fork_checks(rec, eng)
+    # the forks' SSM rows on the card: a paged engine that forks two groups
+    # of 8 against a slot engine that prefills all 16 rows, bit for bit
+    paged = _paged_against_slots(cfg, trainer.params, dev, ec.n_slots,
+                                 group=PIPE_GROUP)
+    if not (paged["tokens_equal"] and paged["logprobs_bitwise"]
+            and paged["stamps_equal"] and paged["prefix_forks"] > 0):
+        bad.append(f"paged against slots: {paged}")
+    res.update(ssm={"heads": cfg.n_ssm_heads, "head_dim": cfg.ssm_head_dim,
+                    "state": cfg.ssm_state, "chunk": cfg.ssm_chunk},
+               expected_launches=want, paged_against_slots=paged,
+               preprocess_kernel_vs_plain=check, profile=profile)
+    return _finish("hybrid", res, bad)
+
+
+MOE_PROFILE = {"flash_decode": DECODE_SLOT,
+               "prefill_attention": "prefill_attention_tc",
+               "flash_attention": "flash_attention_tc",
+               "fused_logprob_fwd": "fwd_kernel"}
+
+
+def phase_moe(gpu: str, n_layers: int, device="cuda") -> dict:
+    """The MoE path on `device` (the card; a CPU run rehearses the phase's
+    logic at a reduced config and measures nothing): PipelineRL on
+    granite-moe-1b-a400m, one slot engine, the Preprocessor and the Trainer
+    through the routed experts (the aux loss in every step), the streamed
+    broadcast."""
+    import dataclasses
+
+    from repro_torch import EngineConfig, PipelineConfig, get_config
+
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              fused_loss=True, remat=True)
+    if n_layers != cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    dev = torch.device(device)
+    ec = EngineConfig(n_slots=16, max_len=512, prefill_chunk=64,
+                      temperature=1.0)
+    pc = PipelineConfig(batch_size=16, n_opt_steps=3, pack_rows=4,
+                        pack_seq=1024, n_engines=1, broadcast="streamed",
+                        broadcast_chunks=8)
+    p, trainer, pre = _loop_parts(
+        cfg, ec, pc, _random_source(np.random.default_rng(0),
+                                    cfg.vocab_size), dev)
+    eng = p.engine
+    rec = _run_loop(p, trainer, pre, dev)
+    bad, steps = _loop_checks(rec, p)
+    moe_aux = [float(m["moe_aux"]) for m in trainer.history]
+    if len(moe_aux) != 3 or not all(np.isfinite(a) and a > 0
+                                    for a in moe_aux):
+        bad.append(f"moe_aux per step {moe_aux}")
+    want = _want_launches(cfg, rec, "flash_decode")
+    bad += _launch_checks(cfg, rec, eng, want)
+    batch = rec["seen"][:pc.batch_size]
+    check = _preprocess_against_plain(pre, batch, faults=_faults(cfg))
+    if not check["ok"]:
+        bad.append(f"Preprocessor kernels against plain: {check}")
+    profile = None
+    if dev.type == "cuda":
+        # the MoE layers' share of a decode step's and of a Preprocessor
+        # call's device time: the kernels launched inside their ranges
+        with moe_range():
+            profile = {
+                "decode_step": _profile(lambda: eng.step(), dev, top=12,
+                                        match=MOE_PROFILE,
+                                        ranges=("moe_apply",)),
+                "preprocess": _profile(lambda: pre.process(
+                    [dataclasses.replace(r) for r in batch]), dev, top=12,
+                    match=MOE_PROFILE, ranges=("moe_apply",))}
+    res = _loop_result("moe", gpu, cfg, ec, pc, rec, steps, p)
+    res.update(experts={"n": cfg.n_experts, "top_k": cfg.experts_per_token,
+                        "d_ff": cfg.moe_d_ff,
+                        "capacity_factor": cfg.capacity_factor},
+               moe_aux=moe_aux, expected_launches=want,
+               preprocess_kernel_vs_plain=check, profile=profile)
+    return _finish("moe", res, bad)
 
 
 # ---------------------------------------------------------------------------
@@ -1934,6 +2257,10 @@ def main(argv=None) -> int:
                     help="granite-3-2b depth in the pipeline phase")
     ap.add_argument("--ssm-layers", type=int, default=64,
                     help="mamba2-2.7b depth in the ssm phase")
+    ap.add_argument("--hybrid-layers", type=int, default=32,
+                    help="hymba-1.5b depth in the hybrid phase")
+    ap.add_argument("--moe-layers", type=int, default=24,
+                    help="granite-moe-1b-a400m depth in the moe phase")
     args = ap.parse_args(argv)
     phases = [p for p in args.only.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1972,6 +2299,12 @@ def main(argv=None) -> int:
     if "ssm" in phases:
         paths["ssm"] = phase_ssm(gpu, args.ssm_layers)
         release_memory("ssm", gpu)
+    if "hybrid" in phases:
+        paths["hybrid"] = phase_hybrid(gpu, args.hybrid_layers)
+        release_memory("hybrid", gpu)
+    if "moe" in phases:
+        paths["moe"] = phase_moe(gpu, args.moe_layers)
+        release_memory("moe", gpu)
 
     emit({"kernels": summary(kernels, paths, gpu)})
     print(gpu, flush=True)

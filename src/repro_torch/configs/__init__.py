@@ -1,14 +1,24 @@
 """Architecture registry of the port: ``get_config("<arch-id>")`` for the
-dense GQA and Mamba2 configs ported so far."""
+configs ported so far (every one of the JAX package's but deepseek-v3-671b,
+whose MLA and multi-token-prediction head wait for ROADMAP.md A.6e)."""
 from __future__ import annotations
 
-from repro_torch.configs import granite_3_2b, llama3_8b, mamba2_2_7b, tiny
+from repro_torch.configs import (granite_3_2b, granite_moe_1b, hymba_1_5b,
+                                 llama3_8b, mamba2_2_7b, musicgen_medium,
+                                 phi3_mini_3_8b, phi3_vision_4_2b, qwen3_32b,
+                                 tiny)
 from repro_torch.configs.base import ModelConfig, effective_cache_len, kv_cache_specs
 
 _MODULES = {
     "tiny": tiny,
+    "qwen3-32b": qwen3_32b,
+    "hymba-1.5b": hymba_1_5b,
+    "phi3-mini-3.8b": phi3_mini_3_8b,
+    "phi-3-vision-4.2b": phi3_vision_4_2b,
+    "granite-moe-1b-a400m": granite_moe_1b,
     "llama3-8b": llama3_8b,
     "granite-3-2b": granite_3_2b,
+    "musicgen-medium": musicgen_medium,
     "mamba2-2.7b": mamba2_2_7b,
 }
 
@@ -16,6 +26,10 @@ ARCH_IDS = tuple(_MODULES)
 
 
 def get_config(arch: str) -> ModelConfig:
+    if arch == "deepseek-v3-671b":
+        raise NotImplementedError(
+            f"{arch}: multi-head latent attention and the multi-token "
+            f"prediction head are not ported yet (ROADMAP.md queue A.6e)")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; available: {sorted(_MODULES)}")
     return _MODULES[arch].config()

@@ -1,10 +1,15 @@
-"""Model config for the PyTorch port: the dense-decoder and Mamba2 (SSM)
-fields of the JAX package's `ModelConfig`, under the same names, with a
-torch dtype.
+"""Model config for the PyTorch port: the fields of the JAX package's
+`ModelConfig` that the port reads, under the same names and with the same
+defaults, with a torch dtype.
 
-`arch_type` admits "dense" (the GQA decoder) and "ssm" (attention-free
-Mamba2 / SSD layers); the MLA, MoE, hybrid and multimodal fields arrive
-with the slices that port those paths.
+`arch_type` admits "dense" (the GQA decoder), "moe" (GQA with routed
+experts), "ssm" (attention-free Mamba2 / SSD layers), "hybrid" (Hymba:
+attention and SSM heads in parallel in every layer), "vlm" and "audio"
+(the dense decoder behind a stubbed frontend's prefix embeddings). Left
+out: the MLA and multi-token-prediction fields (they arrive with the slice
+that ports those paths), `router_aux_coef` (the JAX package reads it
+nowhere; the Trainer weighs the MoE loss by `RLConfig.aux_coef`), and
+`hybrid_parallel` (true exactly when `arch_type` is "hybrid").
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str  # dense | ssm
+    arch_type: str  # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -30,6 +35,14 @@ class ModelConfig:
     rope_theta: float = 10000.0
     attention_variant: str = "full"  # full | sliding_window (decode ring buffer)
     sliding_window: int = 8192
+    # MoE
+    n_experts: int = 0
+    experts_per_token: int = 0
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0
+    n_dense_layers: int = 0  # leading dense layers (DeepSeek-V3 uses 3)
+    dense_d_ff: int = 0  # d_ff of those leading dense layers
+    capacity_factor: float = 2.0
     # SSM (Mamba2 / SSD)
     ssm_state: int = 0
     ssm_n_groups: int = 1
@@ -37,6 +50,9 @@ class ModelConfig:
     ssm_head_dim: int = 64
     d_conv: int = 4
     expand: int = 2
+    # multimodal prefix (a stubbed frontend provides embeddings)
+    modality: str = "text"  # text | vision | audio
+    n_prefix_tokens: int = 0
     # numerics
     dtype: torch.dtype = torch.bfloat16
     norm_eps: float = 1e-6
@@ -89,7 +105,7 @@ def kv_cache_specs(cfg: ModelConfig, batch: int,
     """(shape, dtype) of each decode-state leaf, stacked over layers: the
     attention cache `k`, `v` (L,B,CL,KV,Dh), and the SSM state `conv`
     (L,B,d_conv-1,d_inner+2GN) in the model dtype and `ssd` (L,B,H,P,N)
-    in float32."""
+    in float32. A hybrid config holds all four."""
     L = cfg.n_layers
     s: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
     if cfg.has_attention:
@@ -128,7 +144,7 @@ def paged_cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
     spanning every layer, so one host integer per logical block addresses
     both leaves. The (batch, n_blocks) block table lives on the host. SSM
     leaves are O(1) per slot, with nothing to page, and keep the slot
-    layout of `kv_cache_specs`."""
+    layout of `kv_cache_specs`: a hybrid config has both pools and rows."""
     s: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
     if cfg.has_attention:
         ps, _ = paged_layout(cfg, cache_len, page_size)

@@ -22,7 +22,9 @@ prefilled once and forked copy-on-write, and page exhaustion preempts the
 least-progressed slot. The slot engine stays the oracle that paged
 rollouts match bit for bit. An attention-free (SSM) config has nothing to
 page: it keeps O(1) conv and SSD state per slot and runs the slot state
-machine under either setting, admission costing 0 pages.
+machine under either setting, admission costing 0 pages. A hybrid config
+pages its attention leaves and keeps its conv and SSD rows per slot: a
+fork takes the leader's pages and a copy of its post-prefill rows.
 """
 from __future__ import annotations
 
@@ -105,11 +107,18 @@ def _zero_paged_cache(cfg: ModelConfig, n_slots: int, max_len: int,
             for k, (shape, dt) in specs.items()}
 
 
+# the leaves that are page pools in paged mode; the SSM's conv and ssd
+# keep one row per slot
+_PAGED_LEAVES = ("k", "v")
+
+
 def _paged_ring_view(cache, block_tables):
     """Gather pool leaves (L,NP,PS,...) into slot-layout (L,H,CL,...)
-    copies through the block table."""
+    copies through the block table; SSM leaves (already per slot) pass
+    through as they are."""
     bt = block_tables.long()
-    return {k: v[:, bt].flatten(2, 3) for k, v in cache.items()}
+    return {k: v[:, bt].flatten(2, 3) if k in _PAGED_LEAVES else v
+            for k, v in cache.items()}
 
 
 def _admit_impl(st: Dict[str, Any], new_tokens, new_plen, new_ncached,
@@ -218,8 +227,8 @@ def _recompute_impl_paged(params, st: Dict[str, Any], block_tables,
     view = _paged_ring_view(st["cache"], block_tables)
     _recompute_impl(params, dict(st, cache=view), cfg)
     bt = block_tables.long()
-    for k, pool in st["cache"].items():
-        v = view[k]
+    for k in _PAGED_LEAVES:
+        pool, v = st["cache"][k], view[k]
         pool[:, bt] = v.reshape(v.shape[:2] + tuple(bt.shape[1:])
                                 + (pool.shape[2],) + v.shape[3:])
 
@@ -566,9 +575,22 @@ class GenerationEngine:
         if copies:
             src = torch.tensor([c[0] for c in copies], device=self.device)
             dst = torch.tensor([c[1] for c in copies], device=self.device)
-            for pool in self.state["cache"].values():
+            for k in _PAGED_LEAVES:
+                pool = self.state["cache"][k]
                 pool[:, dst] = pool[:, src]
         self._sync_tables()
+
+    def _copy_fork_rows(self, forks: List[Tuple[int, int]]) -> None:
+        """Recurrent SSM state is per slot, not paged: each (fork, leader)
+        fork takes a copy of the leader's post-prefill conv and ssd rows
+        (a hybrid config's; attention-only configs have none)."""
+        cache = self.state["cache"]
+        if "conv" not in cache:
+            return
+        dst = torch.tensor([f for f, _ in forks], device=self.device)
+        src = torch.tensor([ldr for _, ldr in forks], device=self.device)
+        for k in ("conv", "ssd"):
+            cache[k][:, dst] = cache[k][:, src]
 
     def _release_slot_pages(self, s: int) -> None:
         """Rollout finished: drop the slot's page references (shared prefix
@@ -704,6 +726,7 @@ class GenerationEngine:
             self._bt_dirty = True
             self._sync_tables()
             self.prefix_forks += len(forks)
+            self._copy_fork_rows(forks)
         if self._paged:
             self.last_admit_pages = self.allocator.total_allocs - allocs0
         return int(mask.sum())

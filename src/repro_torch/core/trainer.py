@@ -62,13 +62,17 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         # is dead (nothing to predict) and masked by the loss alignment
         kw["loss_targets"] = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
     out = M.forward(params, tokens, batch["positions"], cfg,
-                    segment_ids=batch.get("segment_ids"), **kw)
+                    segment_ids=batch.get("segment_ids"),
+                    prefix_embeds=batch.get("prefix_embeds"), **kw)
     if "logits" in out:
         outputs = out["logits"]
     else:  # fused path: per-token stats, no (B,S,V) logits exist
         outputs = {"token_logprobs": out["token_logprobs"],
                    "entropy": out["entropy"]}
     loss, metrics = reinforce_loss(outputs, out.get("values"), batch, rl)
+    if cfg.n_experts:
+        loss = loss + rl.aux_coef * out["aux_loss"]
+        metrics["moe_aux"] = out["aux_loss"]
     metrics["loss"] = loss
     return loss, metrics
 

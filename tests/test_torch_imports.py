@@ -38,6 +38,10 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "rep
 print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
 print("SSM", "repro_torch.models.ssm" in sys.modules,
       "repro_torch.configs.mamba2_2_7b" in sys.modules)
+print("NEW", "repro_torch.models.moe" in sys.modules, all(
+    "repro_torch.configs." + m in sys.modules for m in (
+        "hymba_1_5b", "granite_moe_1b", "qwen3_32b", "phi3_mini_3_8b",
+        "phi3_vision_4_2b", "musicgen_medium")))
 print("BAD", bad)
 """
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)],
@@ -47,6 +51,7 @@ print("BAD", bad)
     n_loaded = int(out.stdout.split("LOADED ")[1].split()[0])
     assert n_loaded >= 30
     assert "SSM True True" in out.stdout, out.stdout
+    assert "NEW True True" in out.stdout, out.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
