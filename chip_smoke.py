@@ -6,6 +6,7 @@ Run from the repository root:
     python3 chip_smoke.py                  # every phase, as a release check
     python3 chip_smoke.py --only build,kernels,ssm
     python3 chip_smoke.py --only build,kernels,hybrid,moe
+    python3 chip_smoke.py --only env,build,kernels,mla
     python3 chip_smoke.py --only build,kernels,pipeline
     python3 chip_smoke.py --only build,kernels,train --train-layers 2
     python3 chip_smoke.py --only build,kernels,serve --layers 2
@@ -45,15 +46,22 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
    and `flash_attention` also at the hybrid phase's admission chunk (16, C
    64, 25/5 heads, CL 512, offset 320) and Preprocessor forward (16, S 512),
    at the moe phase's (the same with 16/8 heads) and at phi3-mini's MHA
-   d_head 96 (1.5 tensor-core panels).
+   d_head 96 (1.5 tensor-core panels). `prefill_attention` also at absorbed
+   MLA's geometry at deepseek-v3's widths (one KV head, Dk 512 + 64, Dv
+   512, 128 heads; the kernel's wide instance): the mla phase's admission
+   chunk (16, C 64, CL 512, offset 320) and a cache of 1024 at offset 512,
+   and off that shape (a ragged block of rows on a wrapped ring; Dk 320 /
+   Dv 272, whose panels past the head dims the instance zeroes);
+   where `scaled_dot_product_attention` refuses a shape, the row carries
+   its error (`library_error`) and no library time.
    The fused lm-head loss (forward, and the backward's `dh` and `dW`
    from one launch) against its vocab-blocked
    twin at granite-3-2b's head (N=4096 and the Preprocessor's N=8192,
    D=2048, V=49155), llama3-8b's head, mamba2-2.7b's (N=4096, D=2560,
    V=50280), hymba-1.5b's (N=4096, D=1600, V=32001) and
    granite-moe-1b-a400m's (N=4096, D=1024, V=49155), both again at their
-   Preprocessors' N=8192 (forward only), a tied (V,D) head and
-   awkward V, N and dw_chunks; values by
+   Preprocessors' N=8192 (forward only), deepseek-v3's (N=4096, D=7168,
+   V=129280), a tied (V,D) head and awkward V, N and dw_chunks; values by
    max abs error (2e-5 / 2e-2), gradients by max abs error over the
    largest entry (1e-4 / 2e-2), with the unfused composite (logits,
    logsumexp, gather, entropy, autograd) as yardstick. In bfloat16 every
@@ -152,6 +160,29 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
    faults as controls; one decode step runs
    under the profiler with each MoE layer marked, which gives the MoE
    layers' share of its device time.
+10. mla: deepseek-v3-671b at its published widths (d 7168, 128 heads,
+   q_lora 1536, kv_lora 512, nope 128, rope 64, v 128; 256 routed experts
+   top 8 and a shared one of d_ff 2048, dense d_ff 18432, vocab 129280,
+   the MTP head, capacity factor 2) in bfloat16 with the fused loss and
+   random weights from seeds 0 and 1, its depth cut from 61 layers (3
+   dense) to `--mla-layers` (default 2: one dense, one MoE; the cut is
+   printed). A paged engine (16 slots, max_len 512, chunk 64, page 64,
+   prefix sharing) serves prompts of 256-384 random ids in GRPO groups of
+   8 until 16 rollouts finish, taking a swap streamed in 8 chunks from
+   decode step 32 and a `recompute_kv` update at step 64; the Preprocessor
+   (kl_coef 0.05) scores them in calls of 8 x 512 tokens (main and MTP
+   stats through the fused forward). It checks the versions, the stamps,
+   finite logprobs, the forks and the exact launches (`prefill_attention`
+   = layers x chunks, the fused forward twice per Preprocessor call, no
+   other kernel); then the kernel path against the plain one by the
+   centered RMS measure on a prefill chunk's logits (with q_rope zeroed in
+   every layer's call as the control, which must fail it), the
+   Preprocessor's logprobs and the MTP logprobs (with a finite `moe_aux`);
+   then paged against slots bit for bit over 32 decode steps with two
+   forked groups, at a capacity that drops nothing (ROADMAP.md C.9; the
+   config's factor 2 is read). A train step does not fit one card at these
+   widths: the Trainer is held on the CPU. One decode step, prefill chunk
+   and Preprocessor call run under the profiler.
 
 The serve and pipeline profiles report the device ms and launches of the
 decode kernel in their profiled step (`kernels`).
@@ -184,7 +215,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("env", "build", "kernels", "serve", "train", "pipeline", "ssm",
-          "hybrid", "moe")
+          "hybrid", "moe", "mla")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores,
 # float32 outside the tensor cores, HBM3 bandwidth
@@ -576,6 +607,21 @@ def kernel_cases(dtype):
          lambda: prefill_case(16, 64, 16, 8, 512, 64, 64, 320, dtype, 33)),
         ("flash_attention", "granite-moe-preprocess",
          lambda: flash_case(16, 16, 8, 512, 64, dtype, 34)),
+        # absorbed MLA at deepseek-v3's widths (one KV head, Dk 512 + 64,
+        # Dv 512, 128 heads; the wide instance): the mla phase's admission
+        # chunk, and one against a cache of 1024
+        ("prefill_attention", "mla-admission",
+         lambda: prefill_case(16, 64, 128, 1, 512, 576, 512, 320, dtype, 35)),
+        ("prefill_attention", "mla-cl1024",
+         lambda: prefill_case(16, 64, 128, 1, 1024, 576, 512, 512, dtype,
+                              36)),
+        # the wide instance off its main shape: a block of 8 rows after a
+        # full one on a ring wrapped once; narrower head dims, whose
+        # unloaded panels it zeroes, with two KV heads
+        ("prefill_attention", "wide-ragged-ring",
+         lambda: prefill_case(2, 12, 6, 1, 48, 576, 512, 72, dtype, 37)),
+        ("prefill_attention", "wide-dk320-dv272",
+         lambda: prefill_case(2, 8, 16, 2, 96, 320, 272, 136, dtype, 38)),
     ]
 
 
@@ -665,6 +711,9 @@ def fused_cases():
                                   bwd=False)),
         ("granite-moe-preprocess", dict(N=8192, D=1024, V=49155,
                                         transpose=False, bwd=False)),
+        # deepseek-v3's untied head: the mla phase's Preprocessor call (8 x
+        # 512 tokens, main and MTP stats) and a train batch of 4 x 1024
+        ("deepseek-head", dict(N=4096, D=7168, V=129280, transpose=False)),
     ]
 
 
@@ -743,9 +792,14 @@ def phase_kernels(gpu: str) -> list:
                        tol=TOL[dtype], ok=ok,
                        kernel_ms=cuda_ms(case["kernel"], iters),
                        plain_ms=cuda_ms(case["plain"], max(iters // 4, 2)),
-                       library_ms=(cuda_ms(case["library"], iters)
-                                   if case["library"] else None),
+                       library_ms=None,
                        bound_ms=case["bound"][0], bound_by=case["bound"][1])
+            if case["library"]:
+                try:
+                    row["library_ms"] = cuda_ms(case["library"], iters)
+                except RuntimeError as e:
+                    # the library call refuses the shape: no time, its error
+                    row["library_error"] = str(e).splitlines()[0][:300]
             if "bitwise" in case:
                 # the paged kernel against flash_decode on the gathered view
                 same = bool(torch.equal(out, case["bitwise"]()))
@@ -1761,24 +1815,31 @@ PRE_TOL = 5e-2
 def _preprocess_against_plain(pre, batch, faults=()) -> dict:
     """The Preprocessor's reference logprobs on `batch` through the kernels
     against the same through their plain versions (on copies: `process`
-    writes its results into the rollouts). The measure is the RMS error
-    over the RMS of the plain logprobs less each row's mean, <= PRE_TOL:
-    with random weights a logprob is mostly its row's -log V offset, which
-    no fault of the model's layers moves, so the spread about the mean is
-    the scale of what the layers decide (`rel_rms`, over the raw RMS, is
-    reported too). Each of `faults`, a (label, context manager, gate)
-    triple, plants a fault in the kernel path as a control; the measure
-    must fail each one whose gate is set, and reads the others to show
-    what it cannot see."""
+    writes its results into the rollouts), by `_path_check`."""
     import dataclasses
 
     def ref_logprobs():
         done = pre.process([dataclasses.replace(r) for r in batch])
         return [r.ref_logprobs for r in done]
 
-    rows_k = ref_logprobs()
+    return _path_check(ref_logprobs, faults)
+
+
+def _path_check(rows_of, faults=()) -> dict:
+    """`rows_of()`, a list of 1-D arrays (a rollout's logprobs, a
+    position's logits) computed through the model's kernels, against the
+    same through their plain versions. The measure is the RMS error over
+    the RMS of the plain values less each row's mean, <= PRE_TOL: with
+    random weights a logprob is mostly its row's -log V offset, which no
+    fault of the model's layers moves, so the spread about the mean is the
+    scale of what the layers decide (`rel_rms`, over the raw RMS, is
+    reported too). Each of `faults`, a (label, context manager, gate)
+    triple, plants a fault in the kernel path as a control; the measure
+    must fail each one whose gate is set, and reads the others to show
+    what it cannot see."""
+    rows_k = rows_of()
     with plain_kernels():
-        rows_p = ref_logprobs()
+        rows_p = rows_of()
     lp_p = np.concatenate(rows_p)
     spread = np.linalg.norm(np.concatenate([r - r.mean() for r in rows_p]))
 
@@ -1789,14 +1850,14 @@ def _preprocess_against_plain(pre, batch, faults=()) -> dict:
                 "rms_err": float(np.sqrt(np.mean(d * d))),
                 "max_err": float(np.abs(d).max())}
 
-    check = {"rows": len(batch), **measure(rows_k),
+    check = {"rows": len(rows_p), **measure(rows_k),
              "plain_rms_centered": float(spread / np.sqrt(lp_p.size)),
              "tol_rel_rms_centered": PRE_TOL}
     check["ok"] = check["rel_rms_centered"] <= PRE_TOL
     check["planted_faults"] = []
     for label, fault, gate in faults:
         with fault:
-            got = measure(ref_logprobs())
+            got = measure(rows_of())
         got.update(fault=label, gate=gate,
                    caught=got["rel_rms_centered"] > PRE_TOL)
         check["planted_faults"].append(got)
@@ -2194,6 +2255,264 @@ def phase_moe(gpu: str, n_layers: int, device="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: DeepSeek-V3's latent attention, MoE and MTP head
+# ---------------------------------------------------------------------------
+
+MLA_FINISHED = 16         # rollouts the engine serves
+MLA_STREAM_AT = 32        # the decode step that starts the streamed swap
+MLA_RECOMPUTE_AT = 64     # the decode step of the recompute_kv update
+MLA_PRE_ROWS = 8          # rollouts per Preprocessor call: 8 x 512 tokens
+MLA_PROFILE = {"prefill_attention": "prefill_attention_wide",
+               "fused_logprob_fwd": "fwd_kernel"}
+
+
+@contextlib.contextmanager
+def zeroed_q_rope(rope: int):
+    """A control for the prefill chunk's path check: `ops.prefill_attention`
+    with the rope part of its query (the last `rope` columns of the
+    absorbed q = [q_latent; q_rope]) zeroed in every layer's call."""
+    from repro_torch.kernels import ops
+    saved = ops.prefill_attention
+
+    def faulty(q, *a, **k):
+        q = q.clone()
+        q[..., -rope:] = 0
+        return saved(q, *a, **k)
+
+    ops.prefill_attention = faulty
+    try:
+        yield
+    finally:
+        ops.prefill_attention = saved
+
+
+def phase_mla(gpu: str, n_layers: int, device="cuda") -> dict:
+    """DeepSeek-V3 on `device` (the card; a CPU run rehearses the phase's
+    logic at a reduced config and measures nothing): a paged engine with
+    prefix-shared GRPO groups admits prompts through the absorbed MLA
+    chunk (`prefill_attention`'s wide instance), decodes through the
+    absorbed plain attention and the routed experts, takes a streamed swap
+    and a `recompute_kv` update, and the Preprocessor scores the finished
+    rollouts with the fused forward (main and MTP stats). The launch counts
+    are set to 0 before the engine's first refill and read after the last
+    Preprocessor call. A train step does not fit one card at these widths
+    (the MoE layer's float32 Adam moments alone are 90 GB): the Trainer is
+    held on the CPU (tests/test_torch_mla_engine.py)."""
+    import dataclasses
+
+    from repro_torch import (EngineConfig, GenerationEngine,
+                             PreprocessConfig, Preprocessor, get_config,
+                             init_params)
+    from repro_torch.core.weights import tree_flatten
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    # published widths; the depth cut to n_layers, of which min(3,
+    # n_layers - 1) (at least 1) lead as dense layers, so both kinds run
+    full = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(
+        full, fused_loss=True, n_layers=n_layers,
+        n_dense_layers=max(1, min(full.n_dense_layers, n_layers - 1)))
+    reduced = {k: [getattr(full, k), getattr(cfg, k)]
+               for k in ("n_layers", "n_dense_layers")
+               if getattr(full, k) != getattr(cfg, k)}
+    emit({"phase": "mla", "gpu": gpu, "config": cfg.name,
+          "reduced": reduced})
+    dev = torch.device(device)
+    ec = EngineConfig(n_slots=16, max_len=512, prefill_chunk=64,
+                      cache="paged", page_size=64, prefix_sharing=True,
+                      temperature=1.0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    update = init_params(cfg, seed=1, device=dev)   # the swapped-in weights
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    eng = GenerationEngine(
+        cfg, params, ec, _grpo_source(np.random.default_rng(0),
+                                      cfg.vocab_size), seed=0, device=dev)
+    pre = Preprocessor(cfg, update, PreprocessConfig(kl_coef=0.05,
+                                                     max_len=ec.max_len),
+                       device=dev)
+    finished, step_s, chunk_ms, pre_ms = [], [], [], []
+    recompute_ms = None
+    ops.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t_run = time.perf_counter()
+    step = 0
+    while len(finished) < MLA_FINISHED:
+        n_inv = eng.prefill_invocations
+        t0 = time.perf_counter()
+        eng.refill()
+        _sync(dev)
+        if eng.prefill_invocations > n_inv:
+            chunk_ms.append((time.perf_counter() - t0) * 1e3
+                            / (eng.prefill_invocations - n_inv))
+        if step == MLA_STREAM_AT:
+            eng.begin_weight_stream(update, 1, n_chunks=8)
+        if eng.stream_active:
+            eng.stream_weight_chunk()
+            if not eng.stream_active:
+                del params          # the engine holds the update alone
+        if step == MLA_RECOMPUTE_AT:
+            _sync(dev)
+            t0 = time.perf_counter()
+            eng.set_weights(update, 2, recompute_kv=True)
+            _sync(dev)
+            recompute_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        finished += eng.step(now=float(step))
+        step_s.append(time.perf_counter() - t0)
+        step += 1
+    finished = finished[:MLA_FINISHED]
+    forks = {"prompt_prefills": eng.prompt_prefills,
+             "prefix_forks": eng.prefix_forks,
+             "pages_copied": eng.pages_copied,
+             "slots_preempted": eng.slots_preempted}
+    batches = [finished[i:i + MLA_PRE_ROWS]
+               for i in range(0, len(finished), MLA_PRE_ROWS)]
+    for batch in batches:
+        _sync(dev)
+        t0 = time.perf_counter()
+        pre.process([dataclasses.replace(r) for r in batch])
+        _sync(dev)
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+    run_s = time.perf_counter() - t_run
+    launches = dict(ops.launches)
+    peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == "cuda" else None)
+
+    bad = []
+    if eng.version != 2 or not eng.last_stream_installed:
+        bad.append(f"engine version {eng.version}: the streamed swap and "
+                   f"the recompute_kv update did not both install")
+    if not all((np.diff(r.weight_versions) >= 0).all() for r in finished):
+        bad.append("a rollout's version stamps decrease")
+    if not all(np.isfinite(r.behavior_logprobs).all()
+               and (r.behavior_logprobs[r.prompt_len:] <= 0).all()
+               for r in finished):
+        bad.append("behavior logprobs not finite and <= 0")
+    want = {k: 0 for k in KERNELS}
+    want.update(prefill_attention=cfg.n_layers * eng.prefill_invocations,
+                fused_logprob_fwd=2 * len(batches))
+    bad += [f"{k}: {launches[k]} launches, expected {n}"
+            for k, n in want.items() if launches[k] != n]
+    if eng.prefix_forks == 0:
+        bad.append("no prompt was forked")
+
+    # the kernel path against the plain path on the same state: a prefill
+    # chunk's logits (the absorbed attention through prefill_attention,
+    # with q_rope zeroed as the control) on the engine's state, writing
+    # nothing; the Preprocessor's reference logprobs; the MTP head's
+    # logprobs from the fused forward on the first Preprocessor batch
+    st, admit = eng.state, torch.zeros(ec.n_slots, dtype=torch.bool,
+                                       device=dev)
+    off = 4 * ec.prefill_chunk
+
+    def chunk_rows():
+        out = M.prefill_chunk(eng.params, st["tokens"], st["prompt_len"], off,
+                              admit, st["cache"], cfg,
+                              chunk=ec.prefill_chunk, logits=True,
+                              block_tables=eng._bt)["logits"]
+        return list(out.float().flatten(0, 1).cpu().numpy())
+
+    pre_check = _preprocess_against_plain(pre, batches[0])
+    rows = batches[0]
+    T = max(r.length for r in rows)
+    toks = torch.zeros((len(rows), T), dtype=torch.long, device=dev)
+    for i, r in enumerate(rows):
+        toks[i, :r.length] = torch.from_numpy(r.tokens.astype(np.int64))
+    pos = torch.arange(T, device=dev)[None].expand(len(rows), T)
+    tgt = torch.cat([toks[:, 1:], toks[:, -1:]], dim=1)
+    aux = []
+
+    def mtp_rows():
+        out = M.forward(update, toks, pos, cfg, loss_targets=tgt)
+        aux.append(float(out["aux_loss"]))
+        lp = out["mtp_token_logprobs"].cpu().numpy()
+        # row t scores token t+2: a rollout's rows up to its length - 2
+        return [lp[i, :r.length - 2] for i, r in enumerate(rows)]
+
+    with torch.no_grad():
+        chunk_check = _path_check(chunk_rows, [
+            ("prefill_attention, q_rope zeroed in every layer",
+             zeroed_q_rope(cfg.qk_rope_dim), True)])
+        mtp_check = _path_check(mtp_rows)
+    for name, c in (("prefill chunk", chunk_check),
+                    ("Preprocessor", pre_check), ("MTP stats", mtp_check)):
+        if not c["ok"]:
+            bad.append(f"{name}: kernels against plain {c}")
+    if not all(np.isfinite(a) and a > 0 for a in aux):
+        bad.append(f"moe_aux {aux}")
+
+    # paged against slots bit for bit with forked rows. A row's MoE output
+    # depends on the call's other rows where capacity drops tokens
+    # (ROADMAP.md C.9), and a fork's rows hold other values in the paged
+    # engine's prefill (it reads the trash page) than in the slot engine's,
+    # so the law holds at a capacity that drops nothing (factor E / k: an
+    # expert can take every token); at the config's factor 2 it is read
+    no_drop = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    paged = _paged_against_slots(no_drop, update, dev, ec.n_slots,
+                                 group=PIPE_GROUP)
+    if not (paged["tokens_equal"] and paged["logprobs_bitwise"]
+            and paged["stamps_equal"] and paged["prefix_forks"] > 0):
+        bad.append(f"paged against slots: {paged}")
+    paged_cf2 = _paged_against_slots(cfg, update, dev, ec.n_slots,
+                                     group=PIPE_GROUP)
+
+    profile = None
+    if dev.type == "cuda":
+        profile = {
+            "decode_step": _profile(lambda: eng.step(), dev,
+                                    match=MLA_PROFILE),
+            "prefill_chunk": _profile(lambda: M.prefill_chunk(
+                eng.params, st["tokens"], st["prompt_len"], off, admit,
+                st["cache"], cfg, chunk=ec.prefill_chunk,
+                block_tables=eng._bt), dev, match=MLA_PROFILE),
+            "preprocess": _profile(lambda: pre.process(
+                [dataclasses.replace(r) for r in batches[0]]), dev,
+                match=MLA_PROFILE)}
+    steady = step_s[1:]
+    res = {"phase": "mla", "gpu": gpu, "config": cfg.name,
+           "reduced": reduced, "layers": cfg.n_layers,
+           "dense_layers": cfg.n_dense_layers, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "vocab": cfg.vocab_size,
+           "mla": {"q_lora": cfg.q_lora_rank, "kv_lora": cfg.kv_lora_rank,
+                   "nope": cfg.qk_nope_dim, "rope": cfg.qk_rope_dim,
+                   "v": cfg.v_head_dim},
+           "experts": {"n": cfg.n_experts, "top_k": cfg.experts_per_token,
+                       "shared": cfg.n_shared_experts, "d_ff": cfg.moe_d_ff,
+                       "dense_d_ff": cfg.dense_d_ff,
+                       "capacity_factor": cfg.capacity_factor},
+           "mtp_depth": cfg.mtp_depth,
+           "params": sum(t.numel() for t in tree_flatten(update)[0]),
+           "dtype": str(cfg.dtype).replace("torch.", ""),
+           "engine": dataclasses.asdict(ec), "init_s": init_s,
+           "run_s": run_s, "rollouts": len(finished),
+           "decode_steps": len(step_s),
+           "decode_step_ms_median": (statistics.median(steady) * 1e3
+                                     if steady else None),
+           "prefill_invocations": eng.prefill_invocations,
+           "prefill_chunk_ms_median": (statistics.median(chunk_ms)
+                                       if chunk_ms else None),
+           "preprocess_ms": pre_ms, "recompute_kv_ms": recompute_ms,
+           **forks,
+           "rollout_versions": sorted({int(v) for r in finished
+                                       for v in r.weight_versions[
+                                           r.prompt_len:]}),
+           "peak_mem_gib": peak, "launches": launches,
+           "expected_launches": want, "moe_aux": aux,
+           "prefill_chunk_kernel_vs_plain": chunk_check,
+           "preprocess_kernel_vs_plain": pre_check,
+           "mtp_kernel_vs_plain": mtp_check,
+           "paged_against_slots": paged,
+           "paged_against_slots_capacity_2": paged_cf2,
+           "profile": profile}
+    return _finish("mla", res, bad)
+
+
+# ---------------------------------------------------------------------------
 
 def summary(kernels: list, paths: dict, gpu: str) -> list:
     """One entry per kernel: its case at the main path's shapes in bfloat16
@@ -2261,6 +2580,9 @@ def main(argv=None) -> int:
                     help="hymba-1.5b depth in the hybrid phase")
     ap.add_argument("--moe-layers", type=int, default=24,
                     help="granite-moe-1b-a400m depth in the moe phase")
+    ap.add_argument("--mla-layers", type=int, default=2,
+                    help="deepseek-v3-671b depth in the mla phase (61 "
+                         "published; 2 run one dense and one MoE layer)")
     args = ap.parse_args(argv)
     phases = [p for p in args.only.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -2305,6 +2627,9 @@ def main(argv=None) -> int:
     if "moe" in phases:
         paths["moe"] = phase_moe(gpu, args.moe_layers)
         release_memory("moe", gpu)
+    if "mla" in phases:
+        paths["mla"] = phase_mla(gpu, args.mla_layers)
+        release_memory("mla", gpu)
 
     emit({"kernels": summary(kernels, paths, gpu)})
     print(gpu, flush=True)

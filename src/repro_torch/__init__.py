@@ -7,10 +7,13 @@ serving path of the dense GQA decoder (the continuous-batching
 paged cache with prefix-shared GRPO admission), the training path (`pack`,
 `Preprocessor`, `Trainer` with the REINFORCE loss, Adam and the non-finite
 guard) and the orchestration that drives them (`PipelineRL` on the event
-loop, `ConventionalRL`, the `HardwareModel` clock), with hand-written
-Hopper kernels for flash_decode, flash_decode_paged, prefill_attention,
-flash_attention and the fused lm-head loss. Entry points run on the card
-unless the caller passes `device="cpu"`.
+loop, `ConventionalRL`, the `HardwareModel` clock), for every
+architecture of the JAX package (dense GQA, Mamba2, the Hymba hybrid, MoE,
+DeepSeek-V3's latent attention and MTP head, the multimodal prefix), with
+hand-written Hopper kernels for flash_decode, flash_decode_paged,
+prefill_attention, flash_attention, the fused lm-head loss and the SSD
+scan. Entry points run on the card unless the caller passes
+`device="cpu"`.
 """
 from repro_torch.configs import ModelConfig, get_config
 from repro_torch.convert import (params_from_numpy, params_to_numpy,

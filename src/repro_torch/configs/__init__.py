@@ -1,12 +1,11 @@
-"""Architecture registry of the port: ``get_config("<arch-id>")`` for the
-configs ported so far (every one of the JAX package's but deepseek-v3-671b,
-whose MLA and multi-token-prediction head wait for ROADMAP.md A.6e)."""
+"""Architecture registry of the port: ``get_config("<arch-id>")`` for every
+config of the JAX package, and the tiny config of the main path."""
 from __future__ import annotations
 
-from repro_torch.configs import (granite_3_2b, granite_moe_1b, hymba_1_5b,
-                                 llama3_8b, mamba2_2_7b, musicgen_medium,
-                                 phi3_mini_3_8b, phi3_vision_4_2b, qwen3_32b,
-                                 tiny)
+from repro_torch.configs import (deepseek_v3_671b, granite_3_2b,
+                                 granite_moe_1b, hymba_1_5b, llama3_8b,
+                                 mamba2_2_7b, musicgen_medium, phi3_mini_3_8b,
+                                 phi3_vision_4_2b, qwen3_32b, tiny)
 from repro_torch.configs.base import ModelConfig, effective_cache_len, kv_cache_specs
 
 _MODULES = {
@@ -19,6 +18,7 @@ _MODULES = {
     "llama3-8b": llama3_8b,
     "granite-3-2b": granite_3_2b,
     "musicgen-medium": musicgen_medium,
+    "deepseek-v3-671b": deepseek_v3_671b,
     "mamba2-2.7b": mamba2_2_7b,
 }
 
@@ -26,10 +26,6 @@ ARCH_IDS = tuple(_MODULES)
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch == "deepseek-v3-671b":
-        raise NotImplementedError(
-            f"{arch}: multi-head latent attention and the multi-token "
-            f"prediction head are not ported yet (ROADMAP.md queue A.6e)")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; available: {sorted(_MODULES)}")
     return _MODULES[arch].config()

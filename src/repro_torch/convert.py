@@ -2,8 +2,9 @@
 arrays in, the port's tree of tensors out, and back.
 
 Both trees have the same layout, leaf for leaf: `embed (V,d)`, stacked
-layers under `groups[0]` (`wq (L,d,H,Dh)`, `wo (L,H,Dh,d)`, `ffn.gate/up/down`,
-norms), `lm_head (d,V)` unless tied, `value_head (d,1)` in float32.
+layers under `groups[i]` (`wq (L,d,H,Dh)`, `wo (L,H,Dh,d)`, or MLA's `wq_a`,
+`wkv_a`, `wk_b`, ...; `ffn.gate/up/down` or `moe`, norms), `lm_head (d,V)`
+unless tied, `value_head (d,1)` in float32, `mtp` (DeepSeek-V3's MTP head).
 bfloat16 arrays are carried by their bits (numpy has no bfloat16 of its
 own; `params_to_numpy` returns `ml_dtypes.bfloat16` arrays for them).
 A train state converts the same way: params, the Adam step and float32
@@ -131,7 +132,8 @@ _ENGINE_DEVICE = ("tokens", "lp", "n_cached", "prompt_len", "active")
 
 def engine_state_to_numpy(engine) -> dict:
     """A `GenerationEngine`'s state as numpy: {"state": {tokens, lp,
-    n_cached, prompt_len, active, cache: {k, v}}, "host": {_host_active,
+    n_cached, prompt_len, active, cache: {k, v | c_kv, k_rope | conv, ssd}},
+    "host": {_host_active,
     _host_ncached, _host_prompt_len, ver_buf}, and, paged, "table",
     "refcount", "free" (the allocator's free list, in its order)}."""
     st = engine.state

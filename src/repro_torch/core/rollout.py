@@ -24,7 +24,8 @@ rollouts match bit for bit. An attention-free (SSM) config has nothing to
 page: it keeps O(1) conv and SSD state per slot and runs the slot state
 machine under either setting, admission costing 0 pages. A hybrid config
 pages its attention leaves and keeps its conv and SSD rows per slot: a
-fork takes the leader's pages and a copy of its post-prefill rows.
+fork takes the leader's pages and a copy of its post-prefill rows. An MLA
+config's attention leaves are its latent `c_kv` and rope key `k_rope`.
 """
 from __future__ import annotations
 
@@ -107,9 +108,14 @@ def _zero_paged_cache(cfg: ModelConfig, n_slots: int, max_len: int,
             for k, (shape, dt) in specs.items()}
 
 
-# the leaves that are page pools in paged mode; the SSM's conv and ssd
-# keep one row per slot
-_PAGED_LEAVES = ("k", "v")
+# the attention cache leaves (GQA's k and v, MLA's latent c_kv and
+# k_rope), page pools in paged mode; the SSM's conv and ssd keep one row
+# per slot
+_PAGED_LEAVES = ("k", "v", "c_kv", "k_rope")
+
+
+def _attention_leaves(cache) -> List[str]:
+    return [k for k in _PAGED_LEAVES if k in cache]
 
 
 def _paged_ring_view(cache, block_tables):
@@ -193,14 +199,15 @@ def _recompute_impl(params, st: Dict[str, Any], cfg: ModelConfig) -> None:
     in both the old and the new cache (masked by count), so a full
     overwrite is safe. Recurrent SSM state is not recomputed (nor is it in
     the JAX package), so an attention-free config runs no forward at all."""
-    if "k" not in st["cache"]:
+    leaves = _attention_leaves(st["cache"])
+    if not leaves:
         return
     H, T = st["tokens"].shape
     dev = st["tokens"].device
     positions = torch.arange(T, device=dev)[None].expand(H, T)
     out = M.forward(params, st["tokens"], positions, cfg, return_cache=True,
                     logits=False)
-    for k in ("k", "v"):
+    for k in leaves:
         full, dst = out["cache"][k], st["cache"][k]     # (L,H,T,...), (L,H,CL,...)
         if full.shape == dst.shape:
             dst.copy_(full)
@@ -227,7 +234,7 @@ def _recompute_impl_paged(params, st: Dict[str, Any], block_tables,
     view = _paged_ring_view(st["cache"], block_tables)
     _recompute_impl(params, dict(st, cache=view), cfg)
     bt = block_tables.long()
-    for k in _PAGED_LEAVES:
+    for k in _attention_leaves(st["cache"]):
         pool, v = st["cache"][k], view[k]
         pool[:, bt] = v.reshape(v.shape[:2] + tuple(bt.shape[1:])
                                 + (pool.shape[2],) + v.shape[3:])
@@ -307,7 +314,8 @@ class GenerationEngine:
             self._cache_len = self.tables.n_blocks * self.allocator.page_size
             assert self._cache_len == effective_cache_len(cfg, T)
         elif cfg.has_attention:
-            self._cache_len = self.state["cache"]["k"].shape[2]
+            self._cache_len = self.state["cache"][
+                _attention_leaves(self.state["cache"])[0]].shape[2]
         # the effective chunk divides T (chunk windows never cross the
         # token buffer end), the cache length (ring writes stay contiguous)
         # and, paged, the page size (a chunk lands in one logical block)
@@ -575,7 +583,7 @@ class GenerationEngine:
         if copies:
             src = torch.tensor([c[0] for c in copies], device=self.device)
             dst = torch.tensor([c[1] for c in copies], device=self.device)
-            for k in _PAGED_LEAVES:
+            for k in _attention_leaves(self.state["cache"]):
                 pool = self.state["cache"][k]
                 pool[:, dst] = pool[:, src]
         self._sync_tables()

@@ -85,7 +85,10 @@ def _value_and_grad(params, batch, cfg: ModelConfig, rl: RLConfig):
     with torch.enable_grad():
         loss, metrics = loss_fn(tree_unflatten(treedef, live), batch, cfg,
                                 rl)
-        grads = torch.autograd.grad(loss, live)
+        # a leaf the loss does not reach (the MTP head's: its outputs pass
+        # through untouched) gets a zero gradient, as under jax.grad
+        grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                    materialize_grads=True)
     return {k: v.detach() for k, v in metrics.items()}, list(grads)
 
 

@@ -4,7 +4,9 @@
 // body, decode_common.cuh): one thread block owns
 // R query rows that all read the same KV head, keeps their online-softmax
 // state (running max m, denominator l, numerator acc) in shared memory in
-// float32, and streams the keys through shared memory in tiles of kBlockK.
+// float32, and streams the keys through shared memory in tiles of kb keys
+// (kBlockK; prefill_attention's head dims past 256, absorbed MLA's 576 /
+// 512, take 16 rows and 32-key tiles to fit a block's shared memory).
 //
 // Rounding follows the Pallas kernels: q, k and v are widened to float32
 // as they are loaded, scores, softmax and the PV product stay in float32,
@@ -23,7 +25,7 @@
 namespace repro {
 
 constexpr int kThreads = 256;
-constexpr int kBlockK = 64;  // keys per shared-memory tile
+constexpr int kBlockK = 64;  // keys per shared-memory tile, by default
 
 template <typename T>
 struct Vec {
@@ -58,29 +60,32 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, int n, int d,
 
 struct Smem {
   float* q;     // [R][dk]
-  float* k;     // [kBlockK][dk + 1]  (+1: conflict-free column reads)
-  float* v;     // [kBlockK][dv]
-  float* s;     // [R][kBlockK]       scores, then probabilities
+  float* k;     // [kb][dk + 1]  (+1: conflict-free column reads)
+  float* v;     // [kb][dv]
+  float* s;     // [R][kb]       scores, then probabilities
   float* acc;   // [R][dv]
   float* m;     // [R]
   float* l;     // [R]
   float* corr;  // [R]
+  int kb;       // keys per tile
 };
 
-inline size_t smem_bytes(int R, int dk, int dv) {
-  const size_t floats = (size_t)R * dk + (size_t)kBlockK * (dk + 1) +
-                        (size_t)kBlockK * dv + (size_t)R * kBlockK +
-                        (size_t)R * dv + 3 * (size_t)R;
+inline size_t smem_bytes(int R, int dk, int dv, int kb = kBlockK) {
+  const size_t floats = (size_t)R * dk + (size_t)kb * (dk + 1) +
+                        (size_t)kb * dv + (size_t)R * kb + (size_t)R * dv +
+                        3 * (size_t)R;
   return floats * sizeof(float);
 }
 
-__device__ __forceinline__ Smem carve(float* base, int R, int dk, int dv) {
+__device__ __forceinline__ Smem carve(float* base, int R, int dk, int dv,
+                                      int kb = kBlockK) {
   Smem sm;
+  sm.kb = kb;
   sm.q = base;
   sm.k = sm.q + R * dk;
-  sm.v = sm.k + kBlockK * (dk + 1);
-  sm.s = sm.v + kBlockK * dv;
-  sm.acc = sm.s + R * kBlockK;
+  sm.v = sm.k + kb * (dk + 1);
+  sm.s = sm.v + kb * dv;
+  sm.acc = sm.s + R * kb;
   sm.m = sm.acc + R * dv;
   sm.l = sm.m + R;
   sm.corr = sm.l + R;
@@ -103,10 +108,10 @@ __device__ __forceinline__ void tile_update(const Smem& sm, int R, int dk,
                                             int dv, int k0, int n,
                                             float scale, Valid valid) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int nwarps = blockDim.x >> 5, kb = sm.kb;
   // scores: a warp takes 32 consecutive keys of one row
-  for (int e = tid; e < R * kBlockK; e += blockDim.x) {
-    const int r = e / kBlockK, j = e % kBlockK;
+  for (int e = tid; e < R * kb; e += blockDim.x) {
+    const int r = e / kb, j = e % kb;
     float sc = kNegInf;
     if (j < n && valid(r, k0 + j)) {
       const float* qr = sm.q + r * dk;
@@ -120,15 +125,15 @@ __device__ __forceinline__ void tile_update(const Smem& sm, int R, int dk,
   __syncthreads();
   // online softmax: one warp per row
   for (int r = warp; r < R; r += nwarps) {
-    float* sr = sm.s + r * kBlockK;
+    float* sr = sm.s + r * kb;
     float mx = kNegInf;
-    for (int j = lane; j < kBlockK; j += 32) mx = fmaxf(mx, sr[j]);
+    for (int j = lane; j < kb; j += 32) mx = fmaxf(mx, sr[j]);
 #pragma unroll
     for (int o = 16; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
     const float m_prev = sm.m[r];
     const float m_new = fmaxf(m_prev, mx);
     float sum = 0.f;
-    for (int j = lane; j < kBlockK; j += 32) {
+    for (int j = lane; j < kb; j += 32) {
       const float p = expf(sr[j] - m_new);
       sr[j] = p;
       sum += p;
@@ -146,7 +151,7 @@ __device__ __forceinline__ void tile_update(const Smem& sm, int R, int dk,
   // acc = acc * corr + P V: a warp takes 32 consecutive columns of one row
   for (int e = tid; e < R * dv; e += blockDim.x) {
     const int r = e / dv, d = e % dv;
-    const float* pr = sm.s + r * kBlockK;
+    const float* pr = sm.s + r * kb;
     float a = sm.acc[e] * sm.corr[r];
     for (int j = 0; j < n; ++j) a = fmaf(pr[j], sm.v[j * dv + d], a);
     sm.acc[e] = a;

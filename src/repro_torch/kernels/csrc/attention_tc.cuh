@@ -16,6 +16,17 @@
 // A head dim is cut into panels of 64 bfloat16 (128 bytes, the swizzle's
 // span); a K or V tile is 64 x 64 per panel, Q 128 x 64.
 //
+// prefill_attention's head dims past kMaxDim (absorbed MLA: Dk 576 = 512 +
+// 64, Dv 512) take the wide instance (SPLIT): Q's 9 panels of 128 rows and
+// a 17-panel K/V stage cannot both fit twice in 227 KB, and O of 128 rows x
+// 512 columns would need 256 float32 registers a thread. So a block owns
+// kWideRows = 64 rows, which both consumer warpgroups hold: each computes S
+// and the softmax of all 64 rows itself (the same values in both), and
+// accumulates half of O's panels (4 x 64 columns, 128 registers a thread),
+// so nothing passes between the two. K and V come in tiles of kWideKeys =
+// 32 keys (S is a wgmma m64n32k16) through two stages: Q 72 KB, a stage 68
+// KB, 209 KB in all.
+//
 // Per key tile each consumer warpgroup computes
 //   S = Q K^T        wgmma m64n64k16, Q and K both K-major in shared memory
 //   online softmax   on S's accumulator fragments, in float32, base 2
@@ -48,26 +59,45 @@ constexpr int kMaxStages = 4;
 constexpr int kMaxDim = 256;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+// the wide instance: its rows, keys of a tile and panels (Dk up to 576, Dv
+// up to 512, kWideNV V panels per warpgroup)
+constexpr int kWideRows = 64;
+constexpr int kWideKeys = 32;
+constexpr int kWidePK = 9;
+constexpr int kWideNV = 4;
+constexpr int kWideMaxDk = kWidePK * kPanel;
+constexpr int kWideMaxDv = 2 * kWideNV * kPanel;
 
 // Shared memory of one block: 1024 bytes of slack to align the swizzled
-// buffers, Q's panels, the ring's K and V panels, 2 * kMaxStages
-// mbarriers. The ring takes as many stages as fit, at most kMaxStages.
-// kernels/ops.py `_tc_geometry` computes the same numbers.
+// buffers, Q's pk panels of `rows` rows, the ring's K and V panels of
+// `keys` rows, 2 * kMaxStages mbarriers. The ring takes as many stages as
+// fit, at most kMaxStages. kernels/ops.py `_tc_geometry` and
+// `_tc_wide_geometry` compute the same numbers.
 struct Geometry {
   int pk, pv, stages;
   size_t smem;
 };
 
-inline Geometry geometry(int dk, int dv) {
+inline Geometry ring_geometry(int pk, int pv, int rows, int keys) {
   Geometry g;
-  g.pk = (dk + kPanel - 1) / kPanel;
-  g.pv = (dv + kPanel - 1) / kPanel;
-  const size_t fixed = 1024 + (size_t)g.pk * kQPanelBytes + 16 * kMaxStages;
-  const size_t stage = (size_t)(g.pk + g.pv) * kPanelBytes;
+  g.pk = pk;
+  g.pv = pv;
+  const size_t fixed = 1024 + (size_t)pk * rows * 128 + 16 * kMaxStages;
+  const size_t stage = (size_t)(pk + pv) * keys * 128;
   const size_t fit = (kSmemLimit - fixed) / stage;
   g.stages = (int)(fit < (size_t)kMaxStages ? fit : (size_t)kMaxStages);
   g.smem = fixed + (size_t)g.stages * stage;
   return g;
+}
+
+inline Geometry geometry(int dk, int dv) {
+  return ring_geometry((dk + kPanel - 1) / kPanel, (dv + kPanel - 1) / kPanel,
+                       kRows, kKeys);
+}
+
+// The wide instance reserves its 9 + 8 panels whatever the head dims.
+inline Geometry wide_geometry() {
+  return ring_geometry(kWidePK, 2 * kWideNV, kWideRows, kWideKeys);
 }
 
 // ---- shared memory ---------------------------------------------------------
@@ -81,16 +111,18 @@ struct Smem {
   int stage_bytes, v_off;
 };
 
+// rows: Q's rows (a panel is rows x 128 bytes); keys: a K/V tile's.
 __device__ __forceinline__ Smem carve(uint8_t* raw, int pk, int pv,
-                                      int stages) {
+                                      int stages, int rows = kRows,
+                                      int keys = kKeys) {
   Smem sm;
   const uint32_t base = smem_u32(raw);
   const uint32_t pad = (1024 - (base & 1023)) & 1023;
   sm.q_ptr = raw + pad;
   sm.q = base + pad;
-  sm.ring = sm.q + pk * kQPanelBytes;
-  sm.stage_bytes = (pk + pv) * kPanelBytes;
-  sm.v_off = pk * kPanelBytes;
+  sm.ring = sm.q + pk * rows * 128;
+  sm.stage_bytes = (pk + pv) * keys * 128;
+  sm.v_off = pk * keys * 128;
   sm.full = sm.ring + stages * sm.stage_bytes;
   sm.empty = sm.full + 8 * kMaxStages;
   return sm;
@@ -123,6 +155,21 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// The same for a 32-key tile (the wide instance): m64n32k16.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // d += A B, A (bf16 pairs) in registers, B MN-major in shared memory.
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4],
@@ -137,20 +184,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
 
 // ---- block set-up ----------------------------------------------------------
 
-// Copy rows [0, nrows) of Q into its panels, 16 bytes a thread, in the
-// 128-byte swizzle (chunk c of row i at chunk c ^ (i % 8)); rows past
-// nrows and columns past dk are zero. Then initialise the ring's
+// Copy rows [0, nrows) of Q into its panels of `rows` rows, 16 bytes a
+// thread, in the 128-byte swizzle (chunk c of row i at chunk c ^ (i % 8));
+// rows past nrows and columns past dk are zero. Then initialise the ring's
 // barriers, make both visible to the async proxy, and sync the block.
 template <typename RowPtr>
 __device__ __forceinline__ void setup(const Smem& sm, int dk, int pk,
-                                      int nrows, int stages, RowPtr row_ptr) {
+                                      int nrows, int stages, RowPtr row_ptr,
+                                      int rows = kRows) {
   const int chunks = pk * 8;
-  for (int idx = threadIdx.x; idx < kRows * chunks; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < rows * chunks; idx += blockDim.x) {
     const int i = idx / chunks, c = idx % chunks;
     uint4 v = make_uint4(0, 0, 0, 0);
     if (i < nrows && c * 8 < dk)
       v = *reinterpret_cast<const uint4*>(row_ptr(i) + c * 8);
-    *reinterpret_cast<uint4*>(sm.q_ptr + (c / 8) * kQPanelBytes + i * 128 +
+    *reinterpret_cast<uint4*>(sm.q_ptr + (c / 8) * rows * 128 + i * 128 +
                               (((c % 8) ^ (i & 7)) << 4)) = v;
   }
   if (threadIdx.x == 0) {
@@ -166,11 +214,10 @@ __device__ __forceinline__ void setup(const Smem& sm, int dk, int pk,
 
 // The producer's loop, run by lane 0 of the last warp: tile t goes to
 // stage t % stages once its previous contents are released. `issue(t,
-// k_dst, v_dst, bar)` issues the tile's TMA loads.
+// k_dst, v_dst, bar)` issues the tile's TMA loads, `bytes` in all.
 template <typename Issue>
-__device__ __forceinline__ void produce(const Smem& sm, int pk, int pv,
+__device__ __forceinline__ void produce(const Smem& sm, uint32_t bytes,
                                         int stages, int ntiles, Issue issue) {
-  const uint32_t bytes = (uint32_t)(pk + pv) * kPanelBytes;
   for (int t = 0; t < ntiles; ++t) {
     const int s = t % stages;
     mbar_wait(sm.empty + 8 * s, ((t / stages) & 1) ^ 1);
@@ -185,21 +232,27 @@ __device__ __forceinline__ void produce(const Smem& sm, int pk, int pv,
 // The online-softmax state of a warpgroup's 64 rows. Thread (warp w of the
 // warpgroup, lane l) holds rows 16 w + l / 4 and that + 8; accumulator
 // entry 4 j + 2 i + c is row (l / 4) + 8 i, column 8 j + 2 (l % 4) + c of
-// its 64-column tile. PK and NV are the numbers of 64-column panels of Q/K
-// and of V; the columns past dk in the last Q/K panel are zeros, so S
-// runs over all 4 PK k16 steps, unrolled.
+// its 64-column tile (of S: its KEYS-column tile). PK and NV are the
+// numbers of 64-column panels of Q/K and of the warpgroup's V; the columns
+// past dk in the last Q/K panel are zeros, so S runs over all 4 PK k16
+// steps, unrolled. SPLIT: the wide instance, both warpgroups on the same
+// 64 rows, warpgroup w on V panels w NV .. w NV + NV - 1.
 //
 // The tiles are pipelined inside the warpgroup: tile t's S = Q K^T is
 // issued together with the previous tile's O += P V, so the tensor cores
 // run PV while the warpgroup waits for S, and the softmax of tile t runs
 // while PV may still be in flight; the previous tile's stage is released
 // once its PV has completed.
-template <int PK, int NV>
+template <int PK, int NV, int KEYS = kKeys, bool SPLIT = false>
 struct Consumer {
+  static constexpr int kSteps = KEYS / 16;     // k16 steps of P V a tile
+  static constexpr int kFrag = KEYS / 2;       // S entries of a thread
+  static constexpr int kKeyPanel = KEYS * 128; // bytes of a K or V panel
+  static constexpr int kQPanel = (SPLIT ? 64 : kRows) * 128;
   float o[NV][32];
   float m[2], l[2];
-  uint32_t a[4][4];     // P of the pending tile: bf16 pairs, keys 16 kk ..
-  uint32_t a_lo[4][4];  // and P - bf16(P), in bf16
+  uint32_t a[kSteps][4];     // P of the pending tile: bf16 pairs, keys
+  uint32_t a_lo[kSteps][4];  // 16 kk .., and P - bf16(P), in bf16
   int wg, lane;
 
   __device__ __forceinline__ void init() {
@@ -215,22 +268,25 @@ struct Consumer {
     l[0] = l[1] = 0.f;
   }
 
-  // this thread's first row within the block's 128
+  // this thread's first row within the block's rows
   __device__ __forceinline__ int row() const {
-    return wg * 64 + ((threadIdx.x % 128) / 32) * 16 + lane / 4;
+    return (SPLIT ? 0 : wg * 64) + ((threadIdx.x % 128) / 32) * 16 +
+           lane / 4;
   }
+  // the first of this warpgroup's V panels
+  __device__ __forceinline__ int panel0() const { return SPLIT ? wg * NV : 0; }
   // the key offset within a tile of accumulator entry (j, c)
   __device__ __forceinline__ int key(int j, int c) const {
     return 8 * j + 2 * (lane % 4) + c;
   }
 
-  __device__ __forceinline__ void issue_s(float (&s)[32], const Smem& sm,
+  __device__ __forceinline__ void issue_s(float (&s)[kFrag], const Smem& sm,
                                           uint32_t k_tile) const {
-    const uint32_t q_rows = sm.q + wg * 64 * 128;
+    const uint32_t q_rows = sm.q + (SPLIT ? 0 : wg * 64 * 128);
 #pragma unroll
     for (int kk = 0; kk < 4 * PK; ++kk) {
-      const uint32_t off = (kk / 4) * kQPanelBytes + (kk % 4) * 32;
-      const uint32_t koff = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+      const uint32_t off = (kk / 4) * kQPanel + (kk % 4) * 32;
+      const uint32_t koff = (kk / 4) * kKeyPanel + (kk % 4) * 32;
       wgmma_ss(s, desc(q_rows + off, 16, 1024), desc(k_tile + koff, 16, 1024),
                kk > 0);
     }
@@ -238,11 +294,11 @@ struct Consumer {
 
   __device__ __forceinline__ void issue_pv(uint32_t v_tile) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < kSteps; ++kk)
 #pragma unroll
       for (int p = 0; p < NV; ++p) {
-        const uint64_t dv =
-            desc(v_tile + p * kPanelBytes + kk * 16 * 128, 1024, 1024);
+        const uint64_t dv = desc(
+            v_tile + (panel0() + p) * kKeyPanel + kk * 16 * 128, 1024, 1024);
         wgmma_rs(o[p], a[kk], dv);
         wgmma_rs(o[p], a_lo[kk], dv);
       }
@@ -251,7 +307,7 @@ struct Consumer {
   // The registers of P stay untouched until its PV has completed.
   __device__ __forceinline__ void fence_p() {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < kSteps; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         asm volatile("" : "+r"(a[kk][r])::"memory");
@@ -262,12 +318,12 @@ struct Consumer {
   // Scores to probabilities in place, in base 2, with the running max and
   // denominator; returns the factor the previous rows' O must take.
   template <typename Valid>
-  __device__ __forceinline__ void softmax(float (&s)[32], float (&corr)[2],
+  __device__ __forceinline__ void softmax(float (&s)[kFrag], float (&corr)[2],
                                           float scale_log2, bool masked,
                                           Valid valid) {
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < KEYS / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -287,7 +343,7 @@ struct Consumer {
       l[i] *= corr[i];
     }
 #pragma unroll
-    for (int e = 0; e < 32; ++e) {
+    for (int e = 0; e < kFrag; ++e) {
       const int i = (e / 2) % 2;
       s[e] = exp2f(s[e] - mx[i]);
       l[i] += s[e];
@@ -295,14 +351,14 @@ struct Consumer {
   }
 
   // Rescale O, and make the tile's P the pending A fragments.
-  __device__ __forceinline__ void take(const float (&s)[32],
+  __device__ __forceinline__ void take(const float (&s)[kFrag],
                                        const float (&corr)[2]) {
 #pragma unroll
     for (int p = 0; p < NV; ++p)
 #pragma unroll
       for (int e = 0; e < 32; ++e) o[p][e] *= corr[(e / 2) % 2];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < kSteps; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const float x0 = s[8 * kk + 2 * r], x1 = s[8 * kk + 2 * r + 1];
@@ -340,7 +396,7 @@ struct Consumer {
     // the first tile computed: S alone
     int pend = t % stages;  // the stage whose P V is not issued yet
     {
-      float sc[32], corr[2];
+      float sc[kFrag], corr[2];
       wg_fence();
       issue_s(sc, sm, sm.ring + pend * sm.stage_bytes);
       wg_commit();
@@ -359,7 +415,7 @@ struct Consumer {
         release(sm, s);
         continue;
       }
-      float sc[32], corr[2];
+      float sc[kFrag], corr[2];
       wg_fence();
       issue_s(sc, sm, sm.ring + s * sm.stage_bytes);
       wg_commit();
@@ -388,7 +444,8 @@ struct Consumer {
   }
 
   // Write O / max(l, 1e-30) in bfloat16 for this thread's rows below
-  // `nrows`; out_ptr(r) is row r's start (r within the block's 128).
+  // `nrows`, this warpgroup's columns; out_ptr(r) is row r's start (r
+  // within the block's rows).
   template <typename OutPtr>
   __device__ __forceinline__ void store(int nrows, int dv, OutPtr out_ptr) {
 #pragma unroll
@@ -406,7 +463,7 @@ struct Consumer {
       for (int p = 0; p < NV; ++p)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const int col = p * kPanel + key(j, 0);
+          const int col = (panel0() + p) * kPanel + key(j, 0);
           if (col < dv)
             *reinterpret_cast<__nv_bfloat162*>(dst + col) =
                 __floats2bfloat162_rn(o[p][4 * j + 2 * i] / den,
@@ -419,11 +476,13 @@ struct Consumer {
 // ---- host side -------------------------------------------------------------
 
 // The map of a bfloat16 tensor read as (n3, n2, n1, d) with element
-// strides s3, s2, s1 and a contiguous last dim, in 64 x 64 boxes over (d,
-// n1) with the 128-byte swizzle; reads past d or n1 fill zeros. A stride of
-// a dimension of size 1 is never used, and is replaced by a valid one.
+// strides s3, s2, s1 and a contiguous last dim, in boxes of 64 columns x
+// `keys` rows over (d, n1) with the 128-byte swizzle; reads past d or n1
+// fill zeros. A stride of a dimension of size 1 is never used, and is
+// replaced by a valid one.
 inline int make_map(CUtensorMap* map, const void* base, int d, int n1, int n2,
-                    int n3, long long s1, long long s2, long long s3) {
+                    int n3, long long s1, long long s2, long long s3,
+                    int keys = kKeys) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return kMapError + (int)CUDA_ERROR_NOT_FOUND;
   if (n1 == 1) s1 = (d + 7) / 8 * 8;
@@ -433,7 +492,7 @@ inline int make_map(CUtensorMap* map, const void* base, int d, int n1, int n2,
                               (cuuint64_t)n3};
   const cuuint64_t strides[3] = {(cuuint64_t)s1 * 2, (cuuint64_t)s2 * 2,
                                  (cuuint64_t)s3 * 2};
-  const cuuint32_t box[4] = {kPanel, kKeys, 1, 1};
+  const cuuint32_t box[4] = {kPanel, (cuuint32_t)keys, 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(base), dims, strides, box, step,

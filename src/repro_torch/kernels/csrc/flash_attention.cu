@@ -113,7 +113,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tk,
   if (threadIdx.x >= 32 * kConsumerWarps) {
     producer_regs();
     if (threadIdx.x == 32 * kConsumerWarps)
-      produce(sm, PK, NV, stages, ntiles,
+      produce(sm, (PK + NV) * kPanelBytes, stages, ntiles,
               [&](int t, uint32_t k_dst, uint32_t v_dst, uint32_t bar) {
                 const int k0 = lo + t * kKeys;
                 for (int p = 0; p < PK; ++p)

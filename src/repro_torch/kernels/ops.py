@@ -19,8 +19,10 @@ a multiple of 16 bytes, and 16-byte aligned data; they have no backward
 autograd would differentiate rather than cut the gradient silently.
 `prefill_attention` and `flash_attention` dispatch on the dtype (`route`):
 bfloat16 launches the tensor-core kernel (wgmma on TMA-fed tiles; head
-dims multiples of 16 up to 256) and float32 the CUDA-core kernel; a
-bfloat16 shape the tensor-core kernel does not take raises.
+dims multiples of 16 up to 256, and for `prefill_attention` past that up
+to absorbed MLA's 576 / 512 in its wide instance) and float32 the
+CUDA-core kernel; a shape the kernel does not take raises
+(`_prefill_geometry` says which instance a prefill shape takes).
 `fused_logprob` is a `torch.autograd.Function` whose forward and backward
 are kernels, routed likewise: bfloat16 on the tensor cores
 (csrc/fused_logprob.cu, namespace flp_tc), float32 on the CUDA cores.
@@ -55,6 +57,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448        # bytes of shared memory a block may use on sm_90
 _BLOCK_K = 64               # keys per tile (csrc/attention_common.cuh)
 _ROWS = 32                  # query rows per block of the float32 prefill/flash
+# the float32 prefill's (rows, keys per tile), the first that fits: past
+# 256 (absorbed MLA's 576 / 512) 16 rows and 32-key tiles
+_F32_TILES = ((_ROWS, _BLOCK_K), (16, 32))
 # the split-KV decode kernels (csrc/decode_common.cuh): 4 warps, each with
 # 16 keys of a tile in bfloat16 (mma.sync, query heads padded to 16) and 8
 # in float32 (CUDA cores), a ring of two tiles, head dims up to 256; as
@@ -67,11 +72,14 @@ _SM_BLOCKS = 4              # resident blocks an SM is counted for at most
 _DEC_MAX_SPLITS = 8         # a row's splits are one cluster: 8 blocks at most
 # the bfloat16 prefill/flash kernels on tensor cores (csrc/attention_tc.cuh):
 # 64-column panels of a head dim, 128 query rows and 64-key tiles per block,
-# a ring of at most 4 K/V stages, head dims multiples of 16 up to 256
-_TC_PANEL_BYTES = 64 * 128
-_TC_Q_PANEL_BYTES = 128 * 128
+# a ring of at most 4 K/V stages, head dims multiples of 16 up to 256; the
+# wide instance of prefill_attention: 64 rows shared by both consumer
+# warpgroups, 32-key tiles, its 9 K and 8 V panels reserved (Dk up to 576,
+# Dv up to 512)
 _TC_MAX_STAGES = 4
 _TC_MAX_DIM = 256
+_TC_WIDE_ROWS, _TC_WIDE_KEYS = 64, 32
+_TC_WIDE_MAX = (576, 512)
 _TENSOR_CORE = ("prefill_attention", "flash_attention", "fused_logprob_fwd",
                 "fused_logprob_bwd")
 _MMA = ("flash_decode", "flash_decode_paged", "ssd_scan")
@@ -86,11 +94,12 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _smem_bytes(rows: int, dk: int, dv: int) -> int:
+def _smem_bytes(rows: int, dk: int, dv: int, keys: int = _BLOCK_K) -> int:
     """Shared memory of a block of the float32 prefill and flash kernels
-    (csrc/attention_common.cuh `smem_bytes`) with `rows` query rows."""
-    return 4 * (rows * dk + _BLOCK_K * (dk + 1) + _BLOCK_K * dv
-                + rows * _BLOCK_K + rows * dv + 3 * rows)
+    (csrc/attention_common.cuh `smem_bytes`) with `rows` query rows and
+    `keys` keys per tile."""
+    return 4 * (rows * dk + keys * (dk + 1) + keys * dv + rows * keys
+                + rows * dv + 3 * rows)
 
 
 def route(name: str, dtype: torch.dtype) -> str:
@@ -105,23 +114,79 @@ def route(name: str, dtype: torch.dtype) -> str:
     return "cuda-core"
 
 
+def _ring(pk: int, pv: int, rows: int, keys: int) -> tuple:
+    """(ring stages, shared-memory bytes) of a tensor-core attention block
+    with pk Q/K and pv V panels of 64 columns, `rows` query rows and
+    `keys`-key tiles, as csrc/attention_tc.cuh `ring_geometry` computes
+    them: 1024 bytes of alignment slack, the Q panels, the mbarriers, then
+    as many K/V stages as fit, at most 4."""
+    fixed = 1024 + pk * rows * 128 + 16 * _TC_MAX_STAGES
+    stage = (pk + pv) * keys * 128
+    stages = min(_TC_MAX_STAGES, (_SMEM_LIMIT - fixed) // stage)
+    return stages, fixed + stages * stage
+
+
 def _tc_geometry(dk: int, dv: int) -> tuple:
     """(ring stages, shared-memory bytes) of a block of the tensor-core
     attention kernels for head dims (dk, dv), as csrc/attention_tc.cuh
-    `geometry` computes them: 1024 bytes of alignment slack, the Q panels,
-    the mbarriers, then as many K/V stages as fit, at most 4. Raises
-    ValueError for head dims the kernels do not take."""
+    `geometry` computes them: 128 rows, 64-key tiles. Raises ValueError for
+    head dims the kernels do not take."""
     if any(d <= 0 or d % 16 or d > _TC_MAX_DIM for d in (dk, dv)):
         raise ValueError(f"head dims ({dk}, {dv}) must be multiples of 16 "
                          f"up to {_TC_MAX_DIM} for the tensor-core kernel")
-    pk, pv = -(-dk // 64), -(-dv // 64)
-    fixed = 1024 + pk * _TC_Q_PANEL_BYTES + 16 * _TC_MAX_STAGES
-    stage = (pk + pv) * _TC_PANEL_BYTES
-    stages = min(_TC_MAX_STAGES, (_SMEM_LIMIT - fixed) // stage)
+    stages, smem = _ring(-(-dk // 64), -(-dv // 64), 128, 64)
     if stages < 2:
         raise ValueError(f"head dims ({dk}, {dv}) leave no room for two K/V "
                          f"stages in the block's shared memory")
-    return stages, fixed + stages * stage
+    return stages, smem
+
+
+def _tc_wide_geometry(dk: int, dv: int) -> tuple:
+    """(ring stages, shared-memory bytes) of a block of prefill_attention's
+    wide tensor-core instance (csrc/attention_tc.cuh `wide_geometry`): 64
+    rows, 32-key tiles, 9 Q/K and 8 V panels whatever the head dims. Raises
+    ValueError for head dims it does not take."""
+    mk, mv = _TC_WIDE_MAX
+    if dk <= 0 or dv <= 0 or dk % 16 or dv % 16 or dk > mk or dv > mv:
+        raise ValueError(f"head dims ({dk}, {dv}) must be multiples of 16 "
+                         f"up to ({mk}, {mv}) for the wide tensor-core "
+                         f"prefill kernel")
+    return _ring(mk // 64, mv // 64, _TC_WIDE_ROWS, _TC_WIDE_KEYS)
+
+
+class PrefillGeometry(NamedTuple):
+    """The prefill_attention kernel a shape takes: "tc" (tensor cores,
+    128 rows, 64-key tiles), "tc-wide" (tensor cores, 64 rows shared by
+    both consumer warpgroups, 32-key tiles) or "cuda-core" (float32)."""
+    kernel: str
+    rows: int        # query rows of a block
+    keys: int        # keys of a K/V tile
+    stages: int      # K/V stages in shared memory (1 on the CUDA cores)
+    smem: int        # dynamic shared memory of a block, bytes
+
+
+def _prefill_geometry(dk: int, dv: int, dtype: torch.dtype
+                      ) -> PrefillGeometry:
+    """The prefill_attention kernel for head dims (dk, dv) in `dtype`, from
+    the shapes alone: bfloat16 up to 256 the tensor-core kernel, past it
+    the wide instance; float32 the first of `_F32_TILES` that fits the
+    block's shared memory. Raises ValueError for head dims none takes."""
+    if dtype == torch.bfloat16:
+        if max(dk, dv) <= _TC_MAX_DIM:
+            return PrefillGeometry("tc", 128, 64, *_tc_geometry(dk, dv))
+        return PrefillGeometry("tc-wide", _TC_WIDE_ROWS, _TC_WIDE_KEYS,
+                               *_tc_wide_geometry(dk, dv))
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    if dk <= 0 or dv <= 0 or dk % vec or dv % vec:
+        raise ValueError(f"head dims ({dk}, {dv}) must be multiples of {vec} "
+                         f"for {dtype}")
+    for rows, keys in _F32_TILES:
+        smem = _smem_bytes(rows, dk, dv, keys)
+        if smem <= _SMEM_LIMIT:
+            return PrefillGeometry("cuda-core", rows, keys, 1, smem)
+    raise ValueError(f"head dims ({dk}, {dv}) exceed the block's shared "
+                     f"memory at {_F32_TILES[-1][0]} rows and "
+                     f"{_F32_TILES[-1][1]}-key tiles")
 
 
 class DecodeGeometry(NamedTuple):
@@ -227,7 +292,7 @@ def _check(name: str, tensors: Dict[str, torch.Tensor], rows: Optional[int],
                         f"(float32 or bfloat16)")
     vec = 16 // first.element_size()
     tensor_core = route(name, first.dtype) == "wgmma"
-    if tensor_core:
+    if tensor_core and rows is not None:
         try:
             _tc_geometry(dk, dv)
         except ValueError as e:
@@ -405,7 +470,9 @@ def prefill_attention(q, k_chunk, v_chunk, k_cache, v_cache, offset: int, *,
     (ring rule) and causally against its own K/V. q: (B,C,H,Dk);
     k_chunk/v_chunk: (B,C,KV,D); caches: (B,CL,KV,D) in their pre-chunk
     state; offset: absolute position of the chunk's first token (a host
-    int). Returns (B,C,H,Dv)."""
+    int). Returns (B,C,H,Dv). Absorbed MLA calls it with KV = 1, Dk = r +
+    rope, Dv = r; past 256 the kernel's wide instance takes it (Dk up to
+    576, Dv up to 512, `_prefill_geometry`)."""
     offset = int(offset)
     if q.device.type == "cpu":
         return ref.prefill_attention_ref(q, k_chunk, v_chunk, k_cache,
@@ -427,18 +494,23 @@ def prefill_attention(q, k_chunk, v_chunk, k_cache, v_cache, offset: int, *,
     rep = H // KV
     code = _check("prefill_attention",
                   {"q": q, "k_chunk": k_chunk, "v_chunk": v_chunk,
-                   "k_cache": k_cache, "v_cache": v_cache}, _ROWS, Dk, Dv)
+                   "k_cache": k_cache, "v_cache": v_cache}, None, Dk, Dv)
+    try:
+        geo = _prefill_geometry(Dk, Dv, q.dtype)
+    except ValueError as e:
+        raise ValueError(f"prefill_attention: {e}") from None
     out = torch.empty((B, C, H, Dv), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 18)(
         *q.stride()[:3], *k_cache.stride()[:3], *v_cache.stride()[:3],
         *k_chunk.stride()[:3], *v_chunk.stride()[:3], *out.stride()[:3])
     fn = _lib("prefill_attention", "repro_prefill_attention",
-              [_i, _vp, _vp, _vp, _vp, _vp, _vp] + [_i] * 8 + [_f, _i, _vp, _vp])
+              [_i, _vp, _vp, _vp, _vp, _vp, _vp] + [_i] * 8
+              + [_f, _i, _i, _vp, _vp])
     with torch.cuda.device(q.device):
         err = fn(code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                  k_chunk.data_ptr(), v_chunk.data_ptr(), out.data_ptr(), B, C,
-                 KV, rep, CL, Dk, Dv, offset, float(scale), _ROWS,
-                 ctypes.cast(strides, ctypes.c_void_p), _stream(q))
+                 KV, rep, CL, Dk, Dv, offset, float(scale), geo.rows,
+                 geo.keys, ctypes.cast(strides, ctypes.c_void_p), _stream(q))
     _raise_on("prefill_attention", err)
     launches["prefill_attention"] += 1
     return out

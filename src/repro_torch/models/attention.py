@@ -1,14 +1,18 @@
-"""GQA attention layers of the dense decoder: full-sequence forward,
-one-token decode against the slot cache or the paged pool, and chunked
-prefill.
+"""Attention layers: GQA (the dense decoder's) and DeepSeek-V3's multi-head
+latent attention (MLA), each as a full-sequence forward, a one-token
+decode against the slot cache or the paged pool, and a chunked prefill.
 
 Inference attention goes through `kernels.ops`, which runs the CUDA kernels
 on the card and their plain versions on the CPU; the kernels take any shape
 the model produces, so there is no shape gate as in the JAX package.
 Training on packed batches (`segment_ids` given) takes the plain,
 differentiable `blocked_causal_attention`, as in the JAX package, whose
-flash kernel has no backward either. Cache writes update the engine's cache
-tensors in place.
+flash kernel has no backward either. MLA follows the JAX package's routes:
+its full-sequence forward expands the latent into per-head keys and values
+and takes `blocked_causal_attention`, its decode runs the absorbed
+attention in plain code (no kernel in either package), and its chunked
+prefill runs the absorbed attention through `prefill_attention` as one KV
+head. Cache writes update the engine's cache tensors in place.
 """
 from __future__ import annotations
 
@@ -298,3 +302,139 @@ def write_cache_chunk_paged(pool, new, offset: int, write_mask,
                                                   - write_mask.dim())
         merged = torch.where(write_mask.reshape(shape), merged, cur)
     pool[pages, off:off + C] = merged
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): the naive expansion for the full-sequence forward, the
+# absorbed form against the compressed cache for decode and prefill. The
+# cache holds the normed latent c_kv (r) and the one rope key k_rope shared
+# by every head; absorbing W_uk into the query scores it in latent space:
+# q_nope . (W_uk c_kv) = (q_nope W_uk^T) . c_kv.
+# ---------------------------------------------------------------------------
+
+def _mla_q(p, x, positions, cfg: ModelConfig):
+    """q_nope (B,S,H,nope) and the rotated q_rope (B,S,H,rope)."""
+    B, S, _ = x.shape
+    q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    wq_b = p["wq_b"]
+    q = (q @ wq_b.reshape(wq_b.shape[0], -1)).view(B, S, wq_b.shape[1],
+                                                    wq_b.shape[2])
+    nope = cfg.qk_nope_dim
+    return q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
+
+
+def _mla_kv(p, x, positions, cfg: ModelConfig):
+    """The normed latent c_kv (B,S,r) and the rotated k_rope (B,S,rope)."""
+    kv = x @ p["wkv_a"]
+    r = cfg.kv_lora_rank
+    return (rms_norm(kv[..., :r], p["kv_norm"], cfg.norm_eps),
+            apply_rope(kv[..., r:], positions, cfg.rope_theta))
+
+
+def _latent_heads(c_kv, w):
+    """c_kv (B,S,r) through a (r,H,k) up-projection: (B,S,H,k)."""
+    B, S, r = c_kv.shape
+    return (c_kv @ w.reshape(r, -1)).view(B, S, w.shape[1], w.shape[2])
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+
+def mla_forward(p, x, positions, cfg: ModelConfig, segment_ids=None,
+                return_kv: bool = False):
+    """Full-sequence causal MLA, the JAX package's `mla_forward`
+    (`models/attention.py:382-411`): the latent expanded into per-head
+    keys [k_nope; k_rope] and values, through the plain
+    `blocked_causal_attention` (differentiable, packed batches too).
+    Returns y, or (y, (c_kv (B,S,r), k_rope (B,S,rope)))."""
+    B, S, _ = x.shape
+    H, rope = cfg.n_heads, cfg.qk_rope_dim
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    c_kv, k_rope = _mla_kv(p, x, positions, cfg)
+    k_nope = _latent_heads(c_kv, p["wk_b"])
+    v = _latent_heads(c_kv, p["wv_b"])
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, rope)],
+                       dim=-1)
+    out = blocked_causal_attention(q_full, k_full, v, scale=_mla_scale(cfg),
+                                   segment_ids=segment_ids)
+    y = _out_proj(p, out)
+    if return_kv:
+        return y, (c_kv, k_rope)
+    return y
+
+
+def mla_decode(p, x, positions, cache_ckv, cache_krope, cache_index,
+               cfg: ModelConfig, ring: bool, block_tables=None):
+    """Absorbed one-token MLA decode, the JAX package's `mla_decode`
+    (`models/attention.py:414-463`), in plain PyTorch: the JAX package
+    launches no kernel here either. x: (B,1,d); caches (B,CL,r) and
+    (B,CL,rope), or page pools (NP,PS,r) and (NP,PS,rope) with
+    `block_tables` (B,NB): the token's latent is written into its page and
+    the gathered view attended, the slot cache's computation on the same
+    values. Scores and the latent output in float32. Returns y (B,1,d);
+    the caches are updated in place."""
+    B = x.shape[0]
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    c_kv, k_rope = _mla_kv(p, x, positions, cfg)
+    if block_tables is None:
+        CL = cache_ckv.shape[1]
+        write_cache(cache_ckv, c_kv, cache_index)
+        write_cache(cache_krope, k_rope, cache_index)
+        view_ckv, view_krope = cache_ckv, cache_krope
+    else:
+        CL = block_tables.shape[1] * cache_ckv.shape[1]
+        write_cache_paged(cache_ckv, c_kv, cache_index, block_tables)
+        write_cache_paged(cache_krope, k_rope, cache_index, block_tables)
+        view_ckv = paged_gather(cache_ckv, block_tables)
+        view_krope = paged_gather(cache_krope, block_tables)
+    q_latent = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["wk_b"])
+    s = (torch.bmm(q_latent.float(), view_ckv.float().transpose(1, 2))
+         + torch.bmm(q_rope[:, 0].float(), view_krope.float().transpose(1, 2)))
+    s = s * _mla_scale(cfg)                                      # (B,H,CL)
+    if not ring:
+        idx = (cache_index + 1).reshape(-1, 1, 1)
+        s = _mask_fill(s, torch.arange(CL, device=x.device)[None, None] < idx)
+    pw = torch.softmax(s, dim=-1)
+    o_latent = torch.bmm(pw.to(view_ckv.dtype).float(),
+                         view_ckv.float()).to(x.dtype)           # (B,H,r)
+    o = torch.einsum("bhr,rhk->bhk", o_latent, p["wv_b"])
+    return _out_proj(p, o)[:, None]
+
+
+def mla_prefill_chunk(p, x, positions, cache_ckv, cache_krope, offset: int,
+                      write_mask, cfg: ModelConfig, block_tables=None):
+    """One absorbed-MLA layer over a C-token prompt chunk, the JAX
+    package's `mla_prefill_chunk` (`models/attention.py:595-645`): the
+    latent is one KV head whose key is [c_kv; k_rope] (Dk = r + rope) and
+    whose value is c_kv (Dv = r), so `prefill_attention` scores
+    q_latent . c_kv + q_rope . k_rope against the cache prefix and the
+    chunk. Attend, then write the chunk's latent at offset mod CL masked by
+    write_mask; with `block_tables` against the gathered view and into the
+    chunk's page. Returns y (B,C,d); the caches are updated in place."""
+    if block_tables is None:
+        view_ckv, view_krope = cache_ckv, cache_krope
+    else:
+        view_ckv = paged_gather(cache_ckv, block_tables)
+        view_krope = paged_gather(cache_krope, block_tables)
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    c_kv, k_rope = _mla_kv(p, x, positions, cfg)
+    q_latent = torch.einsum("bqhk,rhk->bqhr", q_nope, p["wk_b"])
+    q_cat = torch.cat([q_latent, q_rope], dim=-1)           # (B,C,H,r+rope)
+    kh_cat = torch.cat([c_kv, k_rope], dim=-1)[:, :, None]
+    kc_cat = torch.cat([view_ckv, view_krope], dim=-1)[:, :, None]
+    o_latent = kops.prefill_attention(q_cat, kh_cat, c_kv[:, :, None], kc_cat,
+                                      view_ckv[:, :, None], offset,
+                                      scale=_mla_scale(cfg))   # (B,C,H,r)
+    off_w = offset % view_ckv.shape[1]
+    if block_tables is None:
+        write_cache_chunk(cache_ckv, c_kv, off_w, write_mask)
+        write_cache_chunk(cache_krope, k_rope, off_w, write_mask)
+    else:
+        write_cache_chunk_paged(cache_ckv, c_kv, off_w, write_mask,
+                                block_tables)
+        write_cache_chunk_paged(cache_krope, k_rope, off_w, write_mask,
+                                block_tables)
+    o = torch.einsum("bqhr,rhk->bqhk", o_latent.to(x.dtype), p["wv_b"])
+    return _out_proj(p, o)

@@ -25,7 +25,9 @@ def init_leaf(shape, dtype: torch.dtype, scale: float,
         return torch.ones(shape, dtype=dtype, device=device)
     v = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
-    return (v * scale).to(dtype)
+    # scaled in place: a float32 temporary of a full-width expert stack
+    # (deepseek-v3's is 15 GB) is not made twice
+    return v.mul_(scale).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):

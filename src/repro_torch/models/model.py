@@ -1,9 +1,10 @@
 """The decoder LM of the port: one definition for the dense GQA decoder,
 the attention-free Mamba2 (SSM) stack, the Hymba hybrid (attention and SSM
-heads in parallel in every layer), routed experts (MoE) and the multimodal
-prefix of the vision and audio configs. Parameters, full-sequence forward,
-one-token decode and chunked prefill against the slot cache or the paged
-pool.
+heads in parallel in every layer), routed experts (MoE), DeepSeek-V3's
+latent attention (MLA) with its leading dense layers and multi-token
+prediction (MTP) head, and the multimodal prefix of the vision and audio
+configs. Parameters, full-sequence forward, one-token decode and chunked
+prefill against the slot cache or the paged pool.
 
 Parameters are a nested dict in the JAX package's layout: stacked
 `(count, ...)` leaves under `groups[i]`, one group per `(kind, count)` of
@@ -11,9 +12,10 @@ Parameters are a nested dict in the JAX package's layout: stacked
 (`repro_torch.convert`). The JAX package scans over each group's layers;
 here a Python loop walks per-layer views of the stacked leaves. Decode and
 prefill update the cache tensors in place: attention K/V, and the SSM's
-conv and SSD state. The full-sequence forward is also the training
-forward: packed batches (`segment_ids`), the fused lm-head loss
-(`loss_targets` with `cfg.fused_loss`), the MoE load-balance loss
+conv and SSD state, or MLA's latent `c_kv` and `k_rope`. The
+full-sequence forward is also the training forward: packed batches
+(`segment_ids`), the fused lm-head loss (`loss_targets` with
+`cfg.fused_loss`), the MoE load-balance loss
 (`aux_loss`) and activation checkpointing (`cfg.remat`). The SSM branch
 ignores `segment_ids`, as the JAX package's does: in a packed batch its
 state runs on from one rollout into the next.
@@ -68,6 +70,19 @@ def _attention_shapes(cfg: ModelConfig, count: int) -> Dict[str, Any]:
     d, dt = cfg.d_model, cfg.dtype
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    if cfg.use_mla:
+        qr, r = cfg.q_lora_rank, cfg.kv_lora_rank
+        nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        return {
+            "wq_a": ((count, d, qr), dt, 0.02),
+            "q_norm": ((count, qr), dt, -1.0),
+            "wq_b": ((count, qr, H, nope + rope), dt, 0.02),
+            "wkv_a": ((count, d, r + rope), dt, 0.02),
+            "kv_norm": ((count, r), dt, -1.0),
+            "wk_b": ((count, r, H, nope), dt, 0.02),
+            "wv_b": ((count, r, H, vd), dt, 0.02),
+            "wo": ((count, H, vd, d), dt, out_scale),
+        }
     a = {
         "wq": ((count, d, H, Dh), dt, 0.02),
         "wk": ((count, d, KV, Dh), dt, 0.02),
@@ -121,6 +136,13 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.modality in ("vision", "audio"):
         # learned projector from the (stubbed) frontend embedding space
         shapes["mm_proj"] = ((d, d), dt, 0.02)
+    if cfg.use_mtp:
+        # DeepSeek-V3's MTP head: [norm(h_t); norm(emb_{t+1})] -> proj ->
+        # one dense layer of width dense_d_ff
+        shapes["mtp"] = {"proj": ((2 * d, d), dt, 0.02),
+                         "norm_h": ((d,), dt, -1.0),
+                         "norm_e": ((d,), dt, -1.0),
+                         "layer": _group_shapes(cfg, "dense", 1)}
     return shapes
 
 
@@ -228,6 +250,42 @@ def _fused_loss_stats(params: Params, cfg: ModelConfig, h, loss_targets):
             "entropy": shift(ent)}
 
 
+def _mtp_hidden(params: Params, cfg: ModelConfig, hidden, tokens,
+                positions):
+    """DeepSeek-V3's MTP trunk, the JAX package's `_mtp_hidden`
+    (`models/model.py:304-316`): [norm(h_t); norm(emb_{t+1})] -> proj ->
+    the one dense layer -> the final norm. hidden: (B,S,d) before the final
+    norm, prefix rows stripped. Returns (B,S-1,d); row t carries the draft
+    prediction of token t+2."""
+    mp = params["mtp"]
+    h_t = rms_norm(hidden[:, :-1], mp["norm_h"], cfg.norm_eps)
+    e_next = rms_norm(params["embed"][tokens[:, 1:]], mp["norm_e"],
+                      cfg.norm_eps)
+    x = torch.cat([h_t, e_next], dim=-1) @ mp["proj"]
+    (lp,) = layer_views(mp["layer"], 1)
+    x, _, _ = _layer(cfg, "dense", x, lp, positions[:, 1:], None)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _mtp_outputs(params: Params, cfg: ModelConfig, hidden, tokens,
+                 positions, fused: bool):
+    """The MTP head's outputs: with the fused loss, its per-draft stats
+    through the same fused lm-head call as the main loss (row t scores
+    token t+2; the last row is a dead pad), `mtp_token_logprobs`,
+    `mtp_lse` and `mtp_entropy`, each (B,S-1) float32, the JAX package's
+    `_mtp_fused_stats`; else the (B,S-1,V) `mtp_logits`."""
+    x = _mtp_hidden(params, cfg, hidden, tokens, positions)
+    if not fused:
+        return {"mtp_logits": x @ _head(params, cfg)}
+    B, Sm1, D = x.shape
+    tgt = torch.cat([tokens[:, 2:], tokens[:, -1:]], dim=1)
+    lp, lse, ent = _fused_head_stats(params, cfg, x.reshape(B * Sm1, D),
+                                     tgt.reshape(B * Sm1))
+    return {"mtp_token_logprobs": lp.reshape(B, Sm1),
+            "mtp_lse": lse.reshape(B, Sm1),
+            "mtp_entropy": ent.reshape(B, Sm1)}
+
+
 def _outputs(params: Params, cfg: ModelConfig, h, logits: bool,
              loss_targets=None, n_prefix: int = 0):
     """Final norm, then logits (or the fused loss stats) and values as the
@@ -254,6 +312,11 @@ def _layer(cfg: ModelConfig, kind: str, h, lp, positions, segment_ids,
     cache: Dict[str, torch.Tensor] = {}
 
     def attn_fn(pa, x):
+        if cfg.use_mla:
+            a, (c_kv, k_rope) = attn.mla_forward(pa, x, positions, cfg,
+                                                 segment_ids, return_kv=True)
+            cache.update(c_kv=c_kv, k_rope=k_rope)
+            return a
         a, (k, v) = attn.gqa_forward(pa, x, positions, cfg, segment_ids,
                                      return_kv=True)
         cache.update(k=k, v=v)
@@ -296,8 +359,12 @@ def forward(params: Params, tokens, positions, cfg: ModelConfig, *,
     of the MoE layers' load-balance losses (float32; 0 without experts).
     With `cfg.remat` and grad mode on, each layer keeps only its input and
     recomputes the rest in the backward pass. return_cache gives the
-    attention K/V (L,B,S,...) and the SSM's final conv and SSD state
-    (L,B,...)."""
+    attention K/V (L,B,S,...) (MLA: the latent `c_kv` and `k_rope`) and
+    the SSM's final conv and SSD state (L,B,...). With `cfg.use_mtp` the
+    MTP head's outputs come too (`_mtp_outputs`, from the tokens' own
+    positions), unless the call asks for neither logits nor the fused
+    stats."""
+    tok_positions = positions
     h = params["embed"][tokens]
     n_prefix = 0
     if prefix_embeds is not None:
@@ -328,6 +395,10 @@ def forward(params: Params, tokens, positions, cfg: ModelConfig, *,
         if aux is not None:
             total_aux = total_aux + aux
     out = _outputs(params, cfg, h, logits, loss_targets, n_prefix)
+    fused = cfg.fused_loss and loss_targets is not None
+    if cfg.use_mtp and (fused or logits):
+        out.update(_mtp_outputs(params, cfg, h[:, n_prefix:], tokens,
+                                tok_positions, fused))
     out["aux_loss"] = total_aux
     if return_cache:
         out["cache"] = {k: torch.stack([c[k] for c in caches])
@@ -342,22 +413,28 @@ def forward(params: Params, tokens, positions, cfg: ModelConfig, *,
 def decode_step(params: Params, tokens, positions, cache, cache_index,
                 cfg: ModelConfig, *, ring: Optional[bool] = None,
                 block_tables=None, paged_kernel: bool = False):
-    """tokens, positions: (B,1); cache: {"k", "v"} (L,B,CL,KV,Dh), or page
-    pools (L,NP,PS,KV,Dh) when `block_tables` (B,NB) is given, and/or the
-    SSM's {"conv", "ssd"} (L,B,...) (a hybrid has all four), updated in
-    place; cache_index: (B,) write positions. `paged_kernel` reads the
-    pool through the block table (`flash_decode_paged`) instead of
-    gathering each slot's view. MoE layers route the B tokens together and
+    """tokens, positions: (B,1); cache: {"k", "v"} (L,B,CL,KV,Dh) (MLA:
+    {"c_kv", "k_rope"} (L,B,CL,r|rope)), or page pools (L,NP,PS,...) when
+    `block_tables` (B,NB) is given, and/or the SSM's {"conv", "ssd"}
+    (L,B,...) (a hybrid has all four), updated in place; cache_index: (B,)
+    write positions. `paged_kernel` reads the pool through the block table
+    (`flash_decode_paged`) instead of gathering each slot's view (MLA
+    decodes the gathered view in plain code either way). MoE layers route the B tokens together and
     drop their aux loss. Returns dict(logits (B,1,V), values (B,1)?,
     cache). ring=None takes the full ring exactly when the config is
     sliding-window (as the JAX package does); the engine passes ring=False
     and masks by count."""
     if ring is None:
-        ring = "k" in cache and cfg.attention_variant == "sliding_window"
+        ring = (("k" in cache or "c_kv" in cache)
+                and cfg.attention_variant == "sliding_window")
     h = params["embed"][tokens]
     for l, kind, lp in iter_layers(params, cfg):
 
         def attn_fn(pa, x, l=l):
+            if cfg.use_mla:
+                return attn.mla_decode(pa, x, positions, cache["c_kv"][l],
+                                       cache["k_rope"][l], cache_index, cfg,
+                                       ring, block_tables=block_tables)
             return attn.gqa_decode(pa, x, positions, cache["k"][l],
                                    cache["v"][l], cache_index, cfg, ring,
                                    block_tables=block_tables,
@@ -418,6 +495,10 @@ def prefill_chunk(params: Params, tokens, prompt_len, offset: int, admit_mask,
     for l, kind, lp in iter_layers(params, cfg):
 
         def attn_fn(pa, x, l=l):
+            if cfg.use_mla:
+                return attn.mla_prefill_chunk(
+                    pa, x, positions, cache["c_kv"][l], cache["k_rope"][l],
+                    offset, kv_write_mask, cfg, block_tables=block_tables)
             return attn.gqa_prefill_chunk(pa, x, positions, cache["k"][l],
                                           cache["v"][l], offset,
                                           kv_write_mask, cfg,

@@ -13,9 +13,10 @@ within the kernels phase's 2e-2 (max abs, bfloat16) of the port's plain
 versions and of the JAX package's oracles on bfloat16 inputs made from a
 numpy seed: the new rounding needs no wider tolerance. The shapes are the
 serving shape's head dim at S 1024 (a few heads), a sliding window, a ring
-cache wrapped twice and Dk 80 / Dv 64. The wrappers' geometry and
-acceptance tests need no card: they look at dtypes, head dims, strides and
-addresses only.
+cache wrapped twice and Dk 80 / Dv 64; `prefill_attention`'s wide instance
+(32-key tiles) at absorbed MLA's Dk 576 / Dv 512. The wrappers' geometry
+and acceptance tests need no card: they look at dtypes, head dims, strides
+and addresses only.
 """
 import math
 
@@ -98,11 +99,11 @@ def _tc_flash(q, k, v, *, scale, window=0, split=True):
 
 
 def _tc_prefill(q, k_chunk, v_chunk, k_cache, v_cache, offset, *, scale,
-                split=True):
+                split=True, keys=KEYS):
     """prefill_attention as the tensor-core kernel rounds it: the flattened
     (chunk position, rep) rows of one KV head over the cache slots below
     min(offset, CL) with the ring rule, then the chunk's keys causally,
-    each pass in 64-key tiles."""
+    each pass in tiles of `keys` keys (the wide instance's: 32)."""
     B, C, H, _ = q.shape
     CL, KV = k_cache.shape[1], k_cache.shape[2]
     Dv = v_cache.shape[-1]
@@ -113,15 +114,15 @@ def _tc_prefill(q, k_chunk, v_chunk, k_cache, v_cache, offset, *, scale,
     for b in range(B):
         for g in range(KV):
             tiles = []
-            for k0 in range(0, n_cache, KEYS):
-                j = torch.arange(k0, min(k0 + KEYS, n_cache))
+            for k0 in range(0, n_cache, keys):
+                j = torch.arange(k0, min(k0 + keys, n_cache))
                 p_j = (offset - 1) - torch.remainder(offset - 1 - j, CL)
                 valid = (p_j[None] >= 0) & (offset + pos[:, None] - p_j[None]
                                             < CL)
                 tiles.append((k_cache[b, j, g].float(),
                               v_cache[b, j, g].float(), valid))
-            for k0 in range(0, C, KEYS):
-                j = torch.arange(k0, min(k0 + KEYS, C))
+            for k0 in range(0, C, keys):
+                j = torch.arange(k0, min(k0 + keys, C))
                 tiles.append((k_chunk[b, j, g].float(),
                               v_chunk[b, j, g].float(),
                               j[None] <= pos[:, None]))
@@ -187,6 +188,26 @@ def test_tc_prefill_rounding_within_tolerance(B, C, H, KV, CL, Dk, Dv, off,
     assert _max_err(tc, oracle) <= TOL
 
 
+@SPLITS
+def test_tc_wide_prefill_rounding_within_tolerance(split):
+    """The wide instance's rounding at absorbed MLA's head dims (one KV
+    head, Dk 512 + 64, Dv 512, 16 heads here): 32-key tiles over a cache
+    of 96 at offset 70 and a chunk of 8."""
+    B, C, H, KV, CL, Dk, Dv, off = 1, 8, 16, 1, 96, 576, 512, 70
+    rng = np.random.default_rng(576)
+    (q, qn), (kh, khn), (vh, vhn), (kc, kcn), (vc, vcn) = (
+        _bf16(rng, s) for s in [(B, C, H, Dk), (B, C, KV, Dk), (B, C, KV, Dv),
+                                (B, CL, KV, Dk), (B, CL, KV, Dv)])
+    scale = (128 + 64) ** -0.5      # the model's: 1 / sqrt(nope + rope)
+    tc = _tc_prefill(q, kh, vh, kc, vc, off, scale=scale, split=split,
+                     keys=32).float()
+    plain = ref.prefill_attention_ref(q, kh, vh, kc, vc, off, scale=scale)
+    assert _max_err(tc, plain.float()) <= TOL
+    oracle = jref.prefill_attention_ref(
+        *(jnp.asarray(a) for a in (qn, khn, vhn, kcn, vcn)), off, scale=scale)
+    assert _max_err(tc, oracle) <= TOL
+
+
 # ---------------------------------------------------------------------------
 # the wrappers' acceptance rule for the tensor-core kernels
 # ---------------------------------------------------------------------------
@@ -244,10 +265,13 @@ def test_tc_check_refuses_what_the_kernel_does_not_take():
     # float32 takes it: the CUDA-core kernel's rule
     t32 = _flash_operands(torch.float32, 72)
     assert ops._check("flash_attention", t32, ops._ROWS, 72, 72) == 0
-    # wider than 256: the tensor-core kernel refuses, whatever would fit
+    # wider than 256: the 128-row tensor-core kernel refuses, whatever
+    # would fit (prefill_attention's wide instance takes such head dims,
+    # `ops._prefill_geometry`; flash_attention has none)
     t = _flash_operands(torch.bfloat16, 512)
     with pytest.raises(ValueError, match="up to 256"):
-        ops._check("prefill_attention", t, ops._ROWS, 512, 512)
+        ops._check("flash_attention", t, ops._ROWS, 512, 512)
+    assert ops._prefill_geometry(512, 512, torch.bfloat16).kernel == "tc-wide"
     # the CUDA-core kernel refuses it for its shared memory
     t32 = _flash_operands(torch.float32, 512)
     with pytest.raises(ValueError, match="shared memory"):

@@ -2,14 +2,16 @@
 multimodal prefix (phi-3-vision, musicgen) through the forward and the
 Trainer, on the CPU.
 
-- Every config of the port's registry equals the JAX package's of the same
-  name field by field (the dtype mapped).
+- The registry serves every config of the JAX package, and each equals
+  the JAX package's of the same name field by field (the dtype mapped),
+  with the same analytic parameter count.
 - `param_shapes` gives the JAX `param_defs` tree leaf for leaf (shape,
-  dtype, init scale) at full size, for every ported config; the MLA and MTP
-  config (deepseek-v3) is refused, and the JAX fields the port leaves out
-  are the ones no ported config needs.
+  dtype, init scale) at full size, for every config (deepseek-v3's MLA
+  leaves and MTP head included); the JAX fields the port leaves out are
+  the ones no config needs.
 - The hybrid config's slot and paged cache specs hold the attention and
-  the SSM leaves, as the JAX package's do.
+  the SSM leaves, and deepseek-v3's the latent `c_kv` and `k_rope` at full
+  length, as the JAX package's do.
 - The multimodal forward (`prefix_embeds` through `mm_proj`, shifted
   positions, segment 0 for the prefix of a packed batch, the prefix rows
   stripped from logits, values and the fused stats) at smoke size, float32,
@@ -58,9 +60,10 @@ def _port_config(jcfg, arch):
     return dataclasses.replace(tcfg, dtype=DTYPES[jcfg.dtype], **same)
 
 
-def test_registry_serves_every_config_but_deepseek():
+def test_registry_serves_every_config():
     from repro.configs import ARCH_IDS as JAX_IDS
-    assert set(ARCH_IDS) == (set(JAX_IDS) - {"deepseek-v3-671b"}) | {"tiny"}
+    assert set(ARCH_IDS) == set(JAX_IDS) | {"tiny"}
+    assert len(ARCH_IDS) == 11
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -74,6 +77,8 @@ def test_config_equals_jax_field_by_field(arch):
     for prop in ("d_inner", "n_ssm_heads", "has_attention", "has_ssm",
                  "is_attention_free"):
         assert getattr(tcfg, prop) == getattr(jcfg, prop), prop
+    for active in (False, True):
+        assert tcfg.param_count(active) == jcfg.param_count(active)
 
 
 def _flat_defs(tree, path=""):
@@ -114,11 +119,19 @@ def test_param_shapes_equal_the_jax_tree(arch):
         assert got[k][:2] == tuple(want[k][:2]), k
         assert got[k][2] == pytest.approx(want[k][2], rel=1e-12), k
     if tcfg.n_experts:
-        assert got["/groups/0/moe/router"][1] == torch.float32
+        # the MoE group follows the leading dense layers, if any
+        g = len(M.layer_groups(tcfg)) - 1
+        assert got[f"/groups/{g}/moe/router"][1] == torch.float32
     if tcfg.arch_type == "hybrid":
         assert "/groups/0/hyb_norm_a" in got and "/groups/0/ssm/D" in got
     if tcfg.modality != "text":
         assert got["/mm_proj"][0] == (tcfg.d_model, tcfg.d_model)
+    if tcfg.use_mla:
+        assert got["/groups/0/attn/wkv_a"][0] == (
+            tcfg.n_dense_layers, tcfg.d_model,
+            tcfg.kv_lora_rank + tcfg.qk_rope_dim)
+        assert got["/mtp/layer/ffn/up"][0] == (1, tcfg.d_model,
+                                               tcfg.dense_d_ff)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -138,17 +151,10 @@ def test_smoke_params_convert_leaf_for_leaf(arch):
         np.testing.assert_array_equal(b.numpy(), a)
 
 
-def test_mla_and_mtp_are_refused():
-    with pytest.raises(NotImplementedError, match="A.6e"):
-        get_config("deepseek-v3-671b")
-
-
-# JAX fields the port's config leaves out: MLA and MTP (A.6e), the unread
-# `router_aux_coef`, `hybrid_parallel` (arch_type "hybrid"), and the
-# JAX-only switches (Pallas, interpret mode, scan unrolling)
-_LEFT_OUT = {"use_mla", "q_lora_rank", "kv_lora_rank", "qk_nope_dim",
-             "qk_rope_dim", "v_head_dim", "use_mtp", "mtp_depth",
-             "router_aux_coef", "hybrid_parallel", "use_pallas",
+# JAX fields the port's config leaves out: the unread `router_aux_coef`,
+# `hybrid_parallel` (arch_type "hybrid"), and the JAX-only switches (Pallas,
+# interpret mode, scan unrolling)
+_LEFT_OUT = {"router_aux_coef", "hybrid_parallel", "use_pallas",
              "pallas_interpret", "scan_unroll"}
 
 
@@ -159,7 +165,6 @@ def test_fields_left_out_are_not_needed(arch):
     jcfg, tcfg = _jax_config(arch), get_config(arch)
     port = {f.name for f in dataclasses.fields(tcfg)}
     assert {f.name for f in dataclasses.fields(jcfg)} - port == _LEFT_OUT
-    assert not jcfg.use_mla and not jcfg.use_mtp
     assert jcfg.hybrid_parallel == (tcfg.arch_type == "hybrid")
 
 
@@ -177,6 +182,27 @@ def test_hybrid_cache_specs_hold_attention_and_ssm_leaves():
             for k, (shape, dtype) in tspec.items():
                 assert shape == jspec[k].shape, k
                 assert dtype == DTYPES[jnp.dtype(jspec[k].dtype).type], k
+
+
+def test_mla_cache_specs_hold_the_latent_leaves():
+    """deepseek-v3's slot and paged caches: the latent c_kv (r) and the
+    shared rope key k_rope, at full length even with the sliding-window
+    variant (the compressed cache keeps no ring), as the JAX package's."""
+    tcfg, jcfg = (get_config("deepseek-v3-671b"),
+                  jax_get_config("deepseek-v3-671b"))
+    for variant in ({}, {"attention_variant": "sliding_window",
+                         "sliding_window": 256}):
+        t, j = (dataclasses.replace(tcfg, **variant),
+                dataclasses.replace(jcfg, **variant))
+        for tspec, jspec in ((kv_cache_specs(t, 16, 512),
+                              jax_kv_specs(j, 16, 512)),
+                             (paged_cache_specs(t, 16, 512, 129, 64),
+                              jax_paged_specs(j, 16, 512, 129, 64))):
+            assert set(tspec) == set(jspec) == {"c_kv", "k_rope"}
+            for k, (shape, dtype) in tspec.items():
+                assert shape == jspec[k].shape, k
+                assert dtype == DTYPES[jnp.dtype(jspec[k].dtype).type], k
+        assert kv_cache_specs(t, 16, 512)["c_kv"][0] == (61, 16, 512, 512)
 
 
 # ---------------------------------------------------------------------------
