@@ -6,6 +6,7 @@ Run from the repository root:
     python3 chip_smoke.py                  # every phase, as a release check
     python3 chip_smoke.py --only build,kernels,ssm
     python3 chip_smoke.py --only build,kernels,hybrid,moe
+    python3 chip_smoke.py --only build,kernels,server,faults
     python3 chip_smoke.py --only env,build,kernels,mla
     python3 chip_smoke.py --only build,kernels,pipeline
     python3 chip_smoke.py --only build,kernels,train --train-layers 2
@@ -183,6 +184,49 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
    config's factor 2 is read). A train step does not fit one card at these
    widths: the Trainer is held on the CPU. One decode step, prefill chunk
    and Preprocessor call run under the profiler.
+11. server: the request `Server` on llama3-8b at full width and depth
+   (`--server-layers`, default 32) in bfloat16, random weights from seed
+   0: a paged engine (16 slots, max_len 1024, chunk 128, page 64, 192
+   pages, three quarters of the slots' full caches, the paged kernel),
+   shortest-prompt-first admission, a 160-step admission deadline, 2
+   retries, a queue limit of 24. 48 prompts of 256-1000 random ids come
+   two a serving step, 2 over the budget in the first two steps; a weight
+   update streamed in 8 chunks at step 32, one request quarantined at step
+   48 (`kill_slot`), an atomic `recompute_kv` update at step 96; it runs
+   until every request has settled. It checks that no request is lost and
+   each ended done, rejected, shed or quarantined, that the over-budget
+   ones were rejected, the stamps (non-decreasing, versions 0, 1 and 2),
+   finite behavior logprobs, no live page after the drain, the exact
+   launches (the paged decode per layer per decode step, the prefill
+   kernel per layer per chunk, `flash_attention` per layer for the
+   `recompute_kv`), and before the atomic update one decode step and one
+   prefill chunk of the live paged state through the kernels against the
+   plain versions (logits relative RMS <= 5e-2). It reports decode step
+   and tokens/s, TTFT and latency in steps and ms, admission wait, the
+   streamed swap's install steps, retries, shed, deferrals, deadline
+   misses and peak memory.
+12. faults: a scripted fault plan through `PipelineRL` on granite-3-2b at
+   full width, its depth cut from 40 layers to `--faults-layers` (default
+   2; the cut is printed), bfloat16, fused loss, remat: two paged engines
+   as in pipeline, GRPO groups of 8, batch 16, the Preprocessor, a
+   streamed broadcast, checkpoints every step (2 kept) in a temporary
+   directory whose free space is checked first, the HealthMonitor, 4
+   optimizer steps. The plan: engine 1 crashes and restarts, the trainer
+   crashes and restores its checkpoint, the Preprocessor fails, the link
+   loses (0.3) and damages (0.3) chunks over the second publication, one
+   step is non-finite, the 5th prompt drawn is poisoned, engine 0 hangs
+   and restarts after the watchdog finds it. It checks the fault log,
+   salvaged = requeued + quarantined with nothing lost, the chunks
+   rejected = the corrupt chunks offered to the gate and no torn or
+   foreign install, the poisoned step leaving every tensor `torch.equal`,
+   the restored version = the durable checkpoint's, the stamps, the
+   launches, the Preprocessor against the plain kernels (as in hybrid),
+   and the `Evaluator` (a slot engine, `flash_decode`) on the weights
+   before and after; then it runs the plan again and holds the fault
+   log, every event's simulated time and every counter equal, and reports
+   how many sampled tokens and which losses differ. It reports the wall
+   time of each fault and recovery, checkpoint save and restore ms and
+   bytes, the step times and peak memory.
 
 The serve and pipeline profiles report the device ms and launches of the
 decode kernel in their profiled step (`kernels`).
@@ -215,7 +259,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("env", "build", "kernels", "serve", "train", "pipeline", "ssm",
-          "hybrid", "moe", "mla")
+          "hybrid", "moe", "mla", "server", "faults")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores,
 # float32 outside the tensor cores, HBM3 bandwidth
@@ -1578,16 +1622,16 @@ def _grpo_source(rng, vocab_size: int):
     """Prompts of 256-384 random ids in GRPO groups: each is yielded
     PIPE_GROUP times in a row."""
     from repro_torch.data.math_task import Problem
-    group = {"left": 0, "prob": None}
+    group = {"left": 0, "ids": None}
 
     def source():
         if group["left"] == 0:
             n = int(rng.integers(256, 385))
-            group["prob"] = Problem(rng.integers(3, vocab_size, n).tolist(),
-                                    0)
+            group["ids"] = rng.integers(3, vocab_size, n).tolist()
             group["left"] = PIPE_GROUP
         group["left"] -= 1
-        return group["prob"]
+        # one Problem per draw: a fault plan marks a draw, not its group
+        return Problem(group["ids"], 0)
 
     return source
 
@@ -1603,10 +1647,11 @@ def _random_source(rng, vocab_size: int):
     return source
 
 
-def _loop_parts(cfg, ec, pc, source, dev):
-    """A PipelineRL on one engine at `cfg` with random weights from seed 0,
-    its Trainer (lr 1e-3) and Preprocessor (kl_coef 0.05), and a broadcast
-    that takes PIPE_BCAST_STEPS decode steps on the simulated clock."""
+def _loop_parts(cfg, ec, pc, source, dev, fault_plan=None):
+    """A PipelineRL at `cfg` with random weights from seed 0, its Trainer
+    (lr 1e-3) and Preprocessor (kl_coef 0.05), a broadcast that takes
+    PIPE_BCAST_STEPS decode steps of a lone engine on the simulated clock,
+    and `fault_plan`."""
     import dataclasses
 
     from repro_torch import (AdamConfig, HardwareModel, PipelineRL,
@@ -1627,54 +1672,58 @@ def _loop_parts(cfg, ec, pc, source, dev):
     hw = dataclasses.replace(base, bcast_bytes_per_flash=tree_bytes(params)
                              / (PIPE_BCAST_STEPS * base.step_cost(per_chip)))
     p = PipelineRL(cfg, params, MathTask(), ec, pc, hw=hw, trainer=trainer,
-                   preprocessor=pre, prompt_source=source, device=dev)
+                   preprocessor=pre, prompt_source=source,
+                   fault_plan=fault_plan, device=dev)
     return p, trainer, pre
 
 
 def _run_loop(p, trainer, pre, dev) -> dict:
-    """Run `p` to its end with its engine's steps and refills, the
+    """Run `p` to its end with its engines' steps and refills, the
     Preprocessor's forwards and the trainer's steps timed (host clock,
     synced), the launch counts set to 0 just before the run and read just
     after, and every delivered rollout kept. Each refill records the rows
     it admitted, prefilled and forked and how many copies of each distinct
     prompt it took; a paged engine's live pages are read after each step."""
     from repro_torch.kernels import ops
-    eng = p.engine
     rec = {"step_s": [], "chunk_ms": [], "refill_s": 0.0, "refills": [],
            "live_pages": [], "pre_calls": [], "train": []}
-    raw_step, raw_refill = eng.step, eng.refill
     raw_train, raw_ref = trainer.step, pre._ref_logprobs
     t_start = [0.0]
 
-    def timed_step(*a, **k):
-        t0 = time.perf_counter()
-        done = raw_step(*a, **k)
-        rec["step_s"].append(time.perf_counter() - t0)
-        if eng.allocator is not None:
-            rec["live_pages"].append(eng.allocator.live_pages)
-        return done
+    def wrap(eng):
+        raw_step, raw_refill = eng.step, eng.refill
 
-    def timed_refill(*a, **k):
-        n_inv = eng.prefill_invocations
-        pre_, fork_ = eng.prompt_prefills, eng.prefix_forks
-        rows = np.where(~eng._host_active)[0]
-        t0 = time.perf_counter()
-        n = raw_refill(*a, **k)
-        _sync(dev)
-        dt_s = time.perf_counter() - t0
-        rec["refill_s"] += dt_s
-        if eng.prefill_invocations > n_inv:
-            rec["chunk_ms"].append(dt_s * 1e3
-                                   / (eng.prefill_invocations - n_inv))
-        if n:
-            new = [tuple(eng.problems[s].prompt_ids) for s in rows
-                   if eng._host_active[s]]
-            rec["refills"].append({
-                "admitted": n, "copies": sorted(new.count(key)
-                                                for key in set(new)),
-                "prefills": eng.prompt_prefills - pre_,
-                "forks": eng.prefix_forks - fork_})
-        return n
+        def timed_step(*a, **k):
+            t0 = time.perf_counter()
+            done = raw_step(*a, **k)
+            rec["step_s"].append(time.perf_counter() - t0)
+            if eng.allocator is not None:
+                rec["live_pages"].append(eng.allocator.live_pages)
+            return done
+
+        def timed_refill(*a, **k):
+            n_inv = eng.prefill_invocations
+            pre_, fork_ = eng.prompt_prefills, eng.prefix_forks
+            rows = np.where(~eng._host_active)[0]
+            t0 = time.perf_counter()
+            n = raw_refill(*a, **k)
+            _sync(dev)
+            dt_s = time.perf_counter() - t0
+            rec["refill_s"] += dt_s
+            if eng.prefill_invocations > n_inv:
+                rec["chunk_ms"].append(dt_s * 1e3
+                                       / (eng.prefill_invocations - n_inv))
+            if n:
+                new = [tuple(eng.problems[s].prompt_ids) for s in rows
+                       if eng._host_active[s]]
+                rec["refills"].append({
+                    "admitted": n, "copies": sorted(new.count(key)
+                                                    for key in set(new)),
+                    "prefills": eng.prompt_prefills - pre_,
+                    "forks": eng.prefix_forks - fork_})
+            return n
+
+        eng.step, eng.refill = timed_step, timed_refill
 
     def timed_ref(tokens, *a, **k):
         _sync(dev)
@@ -1695,16 +1744,19 @@ def _run_loop(p, trainer, pre, dev) -> dict:
                              "at_s": time.perf_counter() - t_start[0]})
         return m
 
-    actor = p.actors[0]
-    seen, raw_deliver = [], actor.deliver
+    seen, raw_deliver = [], [a.deliver for a in p.actors]
 
-    def kept_deliver(rollouts, t):
-        seen.extend(rollouts)
-        raw_deliver(rollouts, t)
+    def keep(deliver):
+        def kept_deliver(rollouts, t):
+            seen.extend(rollouts)
+            deliver(rollouts, t)
+        return kept_deliver
 
-    eng.step, eng.refill = timed_step, timed_refill
+    for eng in p.engines:
+        wrap(eng)
+    for actor, deliver in zip(p.actors, raw_deliver):
+        actor.deliver = keep(deliver)
     trainer.step, pre._ref_logprobs = timed_train, timed_ref
-    actor.deliver = kept_deliver
     ops.reset_launches()
     _sync(dev)
     if dev.type == "cuda":
@@ -1718,9 +1770,13 @@ def _run_loop(p, trainer, pre, dev) -> dict:
                            if dev.type == "cuda" else None)
     # back to the class's methods: an instance attribute holding a bound
     # method of its own object would be a reference cycle
-    del eng.step, eng.refill, trainer.step, pre._ref_logprobs
-    actor.deliver = raw_deliver
-    rec.update(log=log, seen=seen, tokens=eng.tokens_generated)
+    for eng in p.engines:
+        del eng.step, eng.refill
+    del trainer.step, pre._ref_logprobs
+    for actor, deliver in zip(p.actors, raw_deliver):
+        actor.deliver = deliver
+    rec.update(log=log, seen=seen,
+               tokens=sum(e.tokens_generated for e in p.engines))
     return rec
 
 
@@ -2514,6 +2570,630 @@ def phase_mla(gpu: str, n_layers: int, device="cuda") -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 11: the request Server
+# ---------------------------------------------------------------------------
+
+SERVER_REQUESTS = 48       # prompts of 256-1000 random ids
+SERVER_OVERLONG = (0, 1)   # serving steps at which an over-budget prompt
+#                            comes (while slots are free, so the engine
+#                            sees it)
+SERVER_UPDATES = {"streamed": 32, "quarantine": 48, "atomic": 96}
+SERVER_DEADLINE = 160.0    # admission deadline, serving steps
+SERVER_MAX_STEPS = 6000
+
+
+def _percentiles(xs) -> dict:
+    return ({"p50": float(np.percentile(xs, 50)),
+             "p99": float(np.percentile(xs, 99))} if len(xs) else None)
+
+
+def phase_server(gpu: str, n_layers: int, device="cuda") -> dict:
+    """The request Server (`repro_torch.Server`) on `device` (the card; a
+    CPU run rehearses the phase's logic at a reduced config and measures
+    nothing): llama3-8b on a paged engine whose pool holds three quarters
+    of its slots' full caches, shortest-prompt-first admission with
+    deadlines, retries and a queue limit, a streamed and an atomic
+    `recompute_kv` weight update under traffic and one quarantined
+    request, until every request has settled."""
+    import dataclasses
+
+    from repro_torch import EngineConfig, Server, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    cfg = get_config("llama3-8b")
+    if n_layers != cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    dev = torch.device(device)
+    ec = EngineConfig(n_slots=16, max_len=1024, prefill_chunk=128,
+                      cache="paged", page_size=64, n_pages=192,
+                      paged_attention="kernel", temperature=1.0)
+    srv = Server(cfg, M.init_params(cfg, seed=0, device=dev), ec, seed=0,
+                 admission="sjf", deadline=SERVER_DEADLINE, max_retries=2,
+                 queue_limit=24, device=dev)
+    eng = srv.engine
+    # update k brings the weights of seed k, stamped version k (the
+    # callback holds no reference to the server: no cycle outlives it)
+    updates = iter(range(1, 3))
+
+    def trainer_weights():
+        k = next(updates)
+        return M.init_params(cfg, seed=k, device=dev), k
+
+    srv.connect_trainer(trainer_weights)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(256, 1001, SERVER_REQUESTS)]
+    overlong = []
+
+    # every rollout the server completes, the engine's steps timed, the
+    # streamed chunks' installs counted
+    seen, step_s, chunk_s = [], [], []
+    raw_deliver, raw_step = srv.actor.deliver, eng.step
+    raw_chunk = eng.stream_weight_chunk
+
+    def kept_deliver(rollouts, t):
+        seen.extend(rollouts)
+        raw_deliver(rollouts, t)
+
+    def timed_step(*a, **k):
+        t0 = time.perf_counter()
+        done = raw_step(*a, **k)
+        step_s.append(time.perf_counter() - t0)
+        return done
+
+    def timed_chunk(*a, **k):
+        t0 = time.perf_counter()
+        done = raw_chunk(*a, **k)
+        chunk_s.append(time.perf_counter() - t0)
+        return done
+
+    srv.actor.deliver, eng.step = kept_deliver, timed_step
+    eng.stream_weight_chunk = timed_chunk
+    ops.reset_launches()
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    # wall clock of each submission, of the end of the tick that started at
+    # a simulated time (a request's first token) and of the tick that ended
+    # at one (its completion)
+    submitted_wall, first_wall, end_wall, tick_ms = {}, {}, {}, []
+    check = quarantined = None
+    t_run = time.perf_counter()
+    step = 0
+    while step <= SERVER_UPDATES["atomic"] or srv.waiting or srv.in_flight \
+            or srv._backoff:
+        if step < SERVER_REQUESTS // 2:       # two requests a step
+            for p in prompts[2 * step:2 * step + 2]:
+                submitted_wall[srv.submit(p)] = time.perf_counter()
+        if step in SERVER_OVERLONG:
+            rid = srv.submit(rng.integers(3, cfg.vocab_size,
+                                          ec.max_len + 8).tolist())
+            submitted_wall[rid] = time.perf_counter()
+            overlong.append(rid)
+        if step == SERVER_UPDATES["streamed"]:
+            srv.request_weight_update(streamed=True, n_chunks=8)
+        if step == SERVER_UPDATES["quarantine"]:
+            quarantined = min(srv.in_flight)
+            if not srv.quarantine(quarantined, reason="operator"):
+                raise SystemExit("server: quarantine refused")
+            eng.tables.check()
+        if step == SERVER_UPDATES["atomic"]:
+            # the kernel path against the plain path on the live state,
+            # before the atomic update rewrites the cache
+            counted = dict(ops.launches)
+            check = _server_path_check(srv, cfg)
+            ops.launches.update(counted)    # the comparison's launches
+            srv.request_weight_update(recompute_kv=True)
+        start = srv.clock
+        t0 = time.perf_counter()
+        srv.step()
+        _sync(dev)
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        first_wall[start] = end_wall[srv.clock] = time.perf_counter()
+        step += 1
+        if step > SERVER_MAX_STEPS:
+            raise SystemExit(f"server: not settled after {step} steps: "
+                             f"{srv.metrics()}")
+    run_s = time.perf_counter() - t_run
+    launches = dict(ops.launches)
+    peak_gb = (torch.cuda.max_memory_allocated(dev) / 2**30
+               if dev.type == "cuda" else None)
+    del eng.step, eng.stream_weight_chunk
+    srv.actor.deliver = raw_deliver
+    m = srv.metrics()
+
+    # --- checks
+    bad = []
+    n_sub = len(prompts) + len(overlong)
+    if m["requests_lost"] != 0:
+        bad.append(f"requests_lost {m['requests_lost']}")
+    settled = (len(srv.done) + len(srv.rejected) + len(srv.shed)
+               + len(srv.quarantined))
+    if settled != n_sub:
+        bad.append(f"{settled} settled of {n_sub} submitted")
+    if sorted(r.rid for r in srv.rejected if r.rid in overlong) != overlong \
+            or eng.prompts_rejected != len(overlong):
+        bad.append(f"over-budget prompts not rejected: {overlong}")
+    if [r.rid for r in srv.quarantined] != [quarantined]:
+        bad.append(f"quarantined {[r.rid for r in srv.quarantined]}")
+    stamps = set()
+    for r in srv.done:
+        if (np.diff(r.weight_versions) < 0).any():
+            bad.append(f"request {r.rid}: stamps decrease")
+        stamps.update(int(v) for v in r.weight_versions)
+    if not {0, 1, 2} <= stamps:
+        bad.append(f"version stamps {sorted(stamps)}, want 0, 1 and 2")
+    if not all(np.isfinite(r.behavior_logprobs).all()
+               and (r.behavior_logprobs[r.prompt_len:] <= 0).all()
+               for r in seen) or not seen:
+        bad.append("behavior logprobs not finite and <= 0")
+    if eng.allocator.live_pages != 0:
+        bad.append(f"{eng.allocator.live_pages} pages live after the drain")
+    if eng.wchunks_rejected or eng.wstreams_torn or eng.version != 2:
+        bad.append(f"engine version {eng.version}, rejected "
+                   f"{eng.wchunks_rejected}, torn {eng.wstreams_torn}")
+    want = {"flash_decode_paged": cfg.n_layers * len(step_s),
+            "prefill_attention": cfg.n_layers * eng.prefill_invocations,
+            "flash_attention": cfg.n_layers}    # the one recompute_kv
+    bad += [f"{k}: {launches[k]} launches, expected {n}"
+            for k, n in want.items() if launches[k] != n]
+    off_path = [k for k in ("flash_decode", "fused_logprob_fwd",
+                            "fused_logprob_bwd", "ssd_scan") if launches[k]]
+    if off_path:
+        bad.append(f"kernels off the path launched: {off_path}")
+    if check is None or not check["decode"]["ok"] \
+            or not check["prefill"]["ok"]:
+        bad.append(f"kernel path against plain path: {check}")
+
+    ttft = [first_wall[r.admitted_at] - submitted_wall[r.rid]
+            for r in srv.done]
+    lat = [end_wall[r.finished_at] - submitted_wall[r.rid]
+           for r in srv.done]
+    install = [tick_ms[i] for i in range(len(tick_ms))
+               if SERVER_UPDATES["streamed"] <= i
+               < SERVER_UPDATES["streamed"] + 8]
+    others = [tick_ms[i] for i in range(SERVER_UPDATES["streamed"] - 8,
+                                        SERVER_UPDATES["streamed"])]
+    steady = step_s[1:]
+    res = {"phase": "server", "gpu": gpu, "config": cfg.name,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads], "d_head": cfg.d_head,
+           "vocab": cfg.vocab_size,
+           "dtype": str(cfg.dtype).replace("torch.", ""),
+           "engine": dataclasses.asdict(ec),
+           "prefill_chunk_effective": eng.prefill_chunk_size,
+           "server": {"admission": "sjf", "deadline": SERVER_DEADLINE,
+                      "max_retries": 2, "queue_limit": 24},
+           "submitted": n_sub, "serving_steps": step, "run_s": run_s,
+           "metrics": m, "stamps": sorted(stamps),
+           "decode_steps": len(step_s),
+           "decode_step_ms_median": (statistics.median(steady) * 1e3
+                                     if steady else None),
+           "decode_tokens_per_s": m["tokens_generated"] / sum(step_s),
+           "ttft_ms": _percentiles(np.array(ttft) * 1e3),
+           "latency_steps": {"p50": m["p50_latency"],
+                             "p99": m["p99_latency"]},
+           "latency_ms": _percentiles(np.array(lat) * 1e3),
+           "admission_wait_steps_mean": m["mean_admission_wait"],
+           "streamed_update": {
+               "step_ms_median_during": statistics.median(install),
+               "step_ms_median_before": statistics.median(others),
+               "chunk_install_ms": [x * 1e3 for x in chunk_s]},
+           "pages": {"pool": eng.allocator.n_pages,
+                     "slots_preempted": eng.slots_preempted},
+           "peak_mem_gib": peak_gb, "launches": launches,
+           "expected_launches": want, "path_check": check}
+    return _finish("server", res, bad)
+
+
+def _server_path_check(srv, cfg) -> dict:
+    """One decode step and one prefill chunk of the server's live paged
+    state through the kernels (the paged decode kernel, the prefill
+    kernel) against the same through the plain versions (each slot's
+    gathered view, the plain attention), on copies of the page pools;
+    logits by `_logits_err`."""
+    eng = srv.engine
+    st, bt = eng.state, eng._bt
+    dev = bt.device
+    idx = torch.arange(eng.ec.n_slots, device=dev)
+    cur = st["tokens"][idx, st["n_cached"]][:, None]
+    pos = st["n_cached"][:, None]
+    from repro_torch.models import model as M
+
+    def decode_logits(kernel):
+        cache = {k: v.clone() for k, v in st["cache"].items()}
+        return M.decode_step(eng.params, cur, pos, cache, st["n_cached"],
+                             cfg, ring=False, block_tables=bt,
+                             paged_kernel=kernel)["logits"]
+
+    def prefill_logits():
+        cache = {k: v.clone() for k, v in st["cache"].items()}
+        return M.prefill_chunk(eng.params, st["tokens"], st["prompt_len"],
+                               256, st["active"].clone(), cache, cfg,
+                               chunk=eng.prefill_chunk_size, logits=True,
+                               block_tables=bt)["logits"]
+
+    dec_k = decode_logits(True)
+    with plain_attention():
+        dec_p = decode_logits(False)
+    pre_k = prefill_logits()
+    with plain_attention():
+        pre_p = prefill_logits()
+    return {"active_slots": int(st["active"].sum()),
+            "decode": _logits_err(dec_k, dec_p),
+            "prefill": _logits_err(pre_k, pre_p)}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the fault plan through PipelineRL
+# ---------------------------------------------------------------------------
+
+FAULTS_STEPS = 4
+# when each fault fires, in flashes of the simulated clock (the loop's
+# HardwareModel: a decode step of 16 rows on an engine's 2 chips is 512
+# flashes, so a wave of rollouts takes ~100,000). Under this plan the
+# steps complete at ~143,700, 308,100, 368,800 and 422,600 (the lost one
+# at 148,000, the NaN one at 271,800): the trainer crash lands in the
+# second step, the preprocessor failure on a batch in flight, the link
+# window on the second publication.
+FAULT_TIMES = {"engine_crash": 40000.0, "engine_restart_after": 20000.0,
+               "trainer_crash": 148000.0, "trainer_restart_after": 5000.0,
+               "preprocess_fail": 255000.0, "link": (300000.0, 40000.0),
+               "nan_step": 150000.0, "hang": 170000.0,
+               "hang_restart_after": 80.0, "poison_ordinal": 5}
+
+
+def _fault_plan():
+    """The faults phase's scripted plan: every fault kind the pipeline
+    schedules, at FAULT_TIMES."""
+    from repro_torch import FaultPlan
+    t = FAULT_TIMES
+    at, span = t["link"]
+    return (FaultPlan(seed=11)
+            .engine_crash(t["engine_crash"], engine=1,
+                          restart_after=t["engine_restart_after"])
+            .trainer_crash(t["trainer_crash"],
+                           restart_after=t["trainer_restart_after"])
+            .preprocess_fail(t["preprocess_fail"])
+            .degrade_link(at, duration=span, drop_prob=0.3)
+            .chunk_corrupt(at, duration=span, drop_prob=0.3)
+            .nan_step(t["nan_step"])
+            .poison_prompt(t["poison_ordinal"])
+            .engine_hang(t["hang"], engine=0,
+                         restart_after=t["hang_restart_after"]))
+
+
+def _faults_run(cfg, dev, plan, ckpt_dir) -> dict:
+    """One run of the faults phase's PipelineRL (two paged engines, GRPO
+    groups, the Preprocessor, checkpoints every step) under `plan`, with
+    the fault firings, every event's simulated time, the checkpoints' and
+    the poisoned step's effects, the streamed chunks that reached the
+    engines' integrity gate and their installs recorded."""
+    import os
+
+    from repro_torch import EngineConfig, PipelineConfig
+    from repro_torch.configs.base import HealthConfig
+    from repro_torch.core import weights as W
+
+    ec = EngineConfig(n_slots=16, max_len=512, prefill_chunk=64,
+                      cache="paged", page_size=64, paged_attention="kernel",
+                      prefix_sharing=True, temperature=1.0)
+    pc = PipelineConfig(batch_size=16, n_opt_steps=FAULTS_STEPS, pack_rows=4,
+                        pack_seq=1024, n_engines=2, broadcast="streamed",
+                        broadcast_chunks=8, group_baseline=True,
+                        ckpt_every=1, ckpt_dir=ckpt_dir,
+                        health=HealthConfig(ckpt_keep=2))
+    p, trainer, pre = _loop_parts(
+        cfg, ec, pc, _grpo_source(np.random.default_rng(0), cfg.vocab_size),
+        dev, fault_plan=plan)
+    walls = []
+    rec = {"fired": [], "fault_wall": walls, "ckpt": [], "restore": [],
+           "poisoned": [], "gate": {"delivered": 0, "corrupt": 0,
+                                    "installs": 0, "foreign_installs": 0},
+           "chunk_ms": []}
+    t0 = [0.0]
+
+    # every event's simulated time
+    raw_loop_step = p.loop.step
+
+    def traced_step():
+        ok = raw_loop_step()
+        if ok:
+            rec["fired"].append(p.loop.now)
+        return ok
+
+    p.loop.step = traced_step
+
+    # the fault log, stamped with the host clock
+    class StampedLog(list):
+        def append(self, entry):
+            walls.append(time.perf_counter() - t0[0])
+            super().append(entry)
+
+    p.fault_log = StampedLog()
+
+    # checkpoint saves and restores, timed, with their files' sizes
+    raw_save, raw_restore = trainer.save, trainer.restore
+
+    def timed_save(path):
+        _sync(dev)
+        t = time.perf_counter()
+        out = raw_save(path)
+        rec["ckpt"].append({"ms": (time.perf_counter() - t) * 1e3,
+                            "bytes": os.path.getsize(out)})
+        return out
+
+    def timed_restore(path):
+        _sync(dev)
+        t = time.perf_counter()
+        v = raw_restore(path)
+        _sync(dev)
+        rec["restore"].append({"ms": (time.perf_counter() - t) * 1e3,
+                               "bytes": os.path.getsize(path),
+                               "version": v,
+                               "durable": p.trainer_stage.last_ckpt_version})
+        return v
+
+    # a poisoned step must leave every parameter and moment as it was
+    raw_train = trainer.step
+
+    def watched_step(batch, poison=False):
+        if not poison:
+            return raw_train(batch)
+        before = W.tree_flatten(trainer.state)[0]
+        m = raw_train(batch, poison=True)
+        after = W.tree_flatten(trainer.state)[0]
+        rec["poisoned"].append(all(torch.equal(a, b)
+                                   for a, b in zip(before, after)))
+        return m
+
+    # the integrity gate: each chunk offered to an engine, against the
+    # token the engine's own span table gives; each install's leaves must
+    # be the published tree's
+    def gate(eng):
+        raw_begin, raw_chunk = eng.begin_weight_stream, eng.stream_weight_chunk
+        published = {}
+
+        def begin(params, version, **k):
+            published["leaves"] = W.tree_flatten(params)[0]
+            return raw_begin(params, version, **k)
+
+        def chunk(token=None):
+            ws = eng._wstream
+            if ws is not None and token is not None:
+                rec["gate"]["delivered"] += 1
+                k = ws["next"]
+                rec["gate"]["corrupt"] += token != W.chunk_token(
+                    ws["version"], k, ws["sizes"][k])
+            t = time.perf_counter()
+            done = raw_chunk(token=token)
+            rec["chunk_ms"].append((time.perf_counter() - t) * 1e3)
+            if done and eng.last_stream_installed:
+                rec["gate"]["installs"] += 1
+                rec["gate"]["foreign_installs"] += not all(
+                    a is b for a, b in zip(W.tree_flatten(eng.params)[0],
+                                           published["leaves"]))
+            return done
+
+        eng.begin_weight_stream, eng.stream_weight_chunk = begin, chunk
+
+    trainer.save, trainer.restore = timed_save, timed_restore
+    trainer.step = watched_step
+    for eng in p.engines:
+        gate(eng)
+    rec["state_bytes"] = W.tree_bytes(trainer.state)
+    t0[0] = time.perf_counter()
+    run = _run_loop(p, trainer, pre, dev)
+    del trainer.save, trainer.restore, p.loop.step
+    for eng in p.engines:
+        del eng.begin_weight_stream, eng.stream_weight_chunk
+    p.fault_log = list(p.fault_log)
+    rec.update(run=run, p=p, trainer=trainer, pre=pre, ec=ec, pc=pc)
+    return rec
+
+
+def _schedule_of(rec) -> dict:
+    """What two runs of one plan must share: the fault firings, every
+    event's simulated time and every counter."""
+    p = rec["p"]
+    return {"fired": rec["fired"], "fault_log": list(p.fault_log),
+            "pool": p.pool_stats(), "broadcast": p.broadcast_stats(),
+            "lag": p.lag_stats(),
+            "log": [{k: r[k] for k in ("version", "time", "max_lag",
+                                       "queue_depth", "bad_step", "samples")}
+                    for r in rec["run"]["log"]]}
+
+
+def phase_faults(gpu: str, n_layers: int, device="cuda") -> dict:
+    """The fault plan through the port's PipelineRL on `device` (the card; a
+    CPU run rehearses the phase's logic at a reduced config and measures
+    nothing): granite-3-2b at full width, its depth cut to `n_layers`, on
+    two paged engines, with an engine crash and restart, a trainer crash
+    and checkpoint restore, a preprocessor failure, a lossy and corrupting
+    link over the second publication, a non-finite step, a poisoned prompt
+    and an engine hang healed by the watchdog; the Evaluator before and
+    after; then the same plan again, which must take the same course."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import Evaluator, get_config
+    from repro_torch.data.math_task import MathTask
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    full = get_config("granite-3-2b")
+    cfg = dataclasses.replace(full, fused_loss=True, remat=True,
+                              n_layers=n_layers)
+    dev = torch.device(device)
+    # a checkpoint is the whole TrainState (the params and two float32 Adam
+    # moments); the rotation holds `trainer_latest`, two rotated files and
+    # the one being written
+    state_bytes = cfg.param_count() * (cfg.dtype.itemsize + 8)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(root).free
+    if free < 4 * state_bytes:
+        shutil.rmtree(root)
+        raise SystemExit(f"faults: {free / 2**30:.1f} GiB free under {root}, "
+                         f"the checkpoints need {4 * state_bytes / 2**30:.1f}")
+    task = MathTask(max_operand=20, ops="+-")
+    ev = Evaluator(cfg, task, n_problems=16, max_len=64, device=dev)
+    runs = []
+    try:
+        ops.reset_launches()
+        scores = {"before": ev.evaluate(M.init_params(cfg, seed=0,
+                                                      device=dev))}
+        eval_launches = dict(ops.launches)
+        for i in range(2):
+            d = os.path.join(root, f"run{i}")
+            os.makedirs(d)
+            rec = _faults_run(cfg, dev, _fault_plan(), d)
+            if i == 0:
+                ops.reset_launches()
+                scores["after"] = ev.evaluate(rec["trainer"].params)
+                for k, n in ops.launches.items():
+                    eval_launches[k] += n
+                path_check = _preprocess_against_plain(
+                    rec["pre"], rec["run"]["seen"][:16], faults=_faults(cfg))
+            # keep the host record; the run's tensors go with it
+            runs.append({**{k: v for k, v in rec.items()
+                            if k not in ("p", "trainer", "pre")},
+                         "schedule": _schedule_of(rec),
+                         "salvage": _salvage_of(rec["p"]),
+                         "engines": [e.version for e in rec["p"].engines]})
+            del rec
+            shutil.rmtree(d)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return _faults_result(gpu, cfg, full, runs, scores, eval_launches,
+                          path_check)
+
+
+def _salvage_of(p) -> dict:
+    """Salvaged prompts against those requeued (still pending or readmitted)
+    and quarantined."""
+    ps = p.pool_stats()
+    pending = sum(getattr(q, "_salvaged_at", None) is not None
+                  for q in p.router.pending)
+    return {"salvaged": ps["prompts_salvaged"],
+            "requeued": ps["prompts_requeued"],
+            "readmitted": ps["requeues_readmitted"], "pending": pending,
+            "quarantined": ps["prompts_quarantined"],
+            "rollouts_lost": ps["rollouts_lost"]}
+
+
+def _faults_result(gpu, cfg, full, runs, scores, eval_launches,
+                   path_check) -> dict:
+    import dataclasses
+    first, second = runs
+    run, sched = first["run"], first["schedule"]
+    bad = []
+    if not path_check["ok"]:
+        bad.append(f"Preprocessor kernels against plain: {path_check}")
+    log = run["log"]
+    if [r["version"] for r in log if not r["bad_step"]] != \
+            list(range(1, FAULTS_STEPS + 1)):
+        bad.append(f"optimizer steps {[r['version'] for r in log]}")
+    if not all(np.isfinite(r["loss"]) for r in log if not r["bad_step"]):
+        bad.append(f"losses {[r['loss'] for r in log]}")
+    kinds = [e["kind"] for e in sched["fault_log"]]
+    for k in ("engine_crash", "engine_restore", "trainer_crash",
+              "trainer_restore", "preprocess_fail", "engine_hang",
+              "engine_hang_detected"):
+        if k not in kinds:
+            bad.append(f"fault log has no {k}: {kinds}")
+    sv = first["salvage"]
+    if sv["salvaged"] != sv["requeued"] + sv["quarantined"] \
+            or sv["requeued"] != sv["readmitted"] + sv["pending"]:
+        bad.append(f"salvaged prompts lost: {sv}")
+    if sv["quarantined"] < 1:
+        bad.append(f"the poisoned prompt was not quarantined: {sv}")
+    bc, gate = sched["pool"]["broadcast"], first["gate"]
+    if bc["wchunks_rejected"] != gate["corrupt"] or gate["corrupt"] < 1:
+        bad.append(f"{bc['wchunks_rejected']} chunks rejected, "
+                   f"{gate['corrupt']} corrupt delivered")
+    if bc["wstreams_torn"] or gate["foreign_installs"] \
+            or bc["chunks_lost"] < 1:
+        bad.append(f"broadcast {bc}, gate {gate}")
+    if first["poisoned"] != [True]:
+        bad.append(f"poisoned steps left the state as it was: "
+                   f"{first['poisoned']}")
+    restores = [r for r in first["restore"]]
+    if not restores or any(r["version"] != r["durable"] for r in restores):
+        bad.append(f"restored versions against the checkpoints: {restores}")
+    if not all((np.diff(r.weight_versions) >= 0).all() for r in run["seen"]):
+        bad.append("a rollout's version stamps decrease")
+    if not all(np.isfinite(r.behavior_logprobs).all() for r in run["seen"]):
+        bad.append("behavior logprobs not finite")
+    for k, v in scores.items():
+        if v["n"] != 16 or not all(np.isfinite([v["success_rate"],
+                                                v["mean_len"]])):
+            bad.append(f"Evaluator {k}: {v}")
+    if eval_launches["flash_decode"] < 1:
+        bad.append("the Evaluator did not launch flash_decode")
+    want = {"flash_decode_paged": cfg.n_layers * len(run["step_s"]),
+            "flash_attention": cfg.n_layers * len(run["pre_calls"]),
+            "fused_logprob_fwd": len(run["pre_calls"]) + len(run["train"]),
+            "fused_logprob_bwd": len(run["train"])}
+    bad += [f"{k}: {run['launches'][k]} launches, expected {n}"
+            for k, n in want.items() if run["launches"][k] != n]
+    if run["launches"]["ssd_scan"] or run["launches"]["flash_decode"]:
+        bad.append(f"kernels off the path launched: {run['launches']}")
+    # the replay: the same schedule and counters; sampled tokens and losses
+    # are read
+    replay = {k: second["schedule"][k] == v for k, v in sched.items()}
+    if not all(replay.values()):
+        bad.append(f"the replay took another course: {replay}")
+    a, b = run["seen"], second["run"]["seen"]
+    diff_tokens = sum(int((x.tokens != y.tokens).sum()) for x, y in zip(a, b)
+                      if x.tokens.shape == y.tokens.shape)
+    losses = [(r["version"], r["loss"], q["loss"])
+              for r, q in zip(log, second["run"]["log"])
+              if r["loss"] != q["loss"]]
+    wall = [dict(e, wall_s=w) for e, w in zip(sched["fault_log"],
+                                              first["fault_wall"])]
+    steps = [{"version": r["version"], "bad_step": r["bad_step"],
+              "sim_time": r["time"], "wall_s": w["at_s"],
+              "train_ms": w["train_ms"], "loss": r["loss"]}
+             for r, w in zip(log, run["train"])]
+    res = {"phase": "faults", "gpu": gpu, "config": cfg.name,
+           "layers": cfg.n_layers,
+           "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+           "params": cfg.param_count(), "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads], "d_head": cfg.d_head,
+           "vocab": cfg.vocab_size,
+           "dtype": str(cfg.dtype).replace("torch.", ""),
+           "engine": dataclasses.asdict(first["ec"]),
+           "pipeline": {k: v for k, v in dataclasses.asdict(
+               first["pc"]).items() if k not in ("health", "ckpt_dir")},
+           "plan": repr(_fault_plan()),
+           "run_s": run["run_s"], "opt_steps": steps,
+           "decode_steps": len(run["step_s"]),
+           "decode_step_ms_median": statistics.median(run["step_s"]) * 1e3,
+           "generated_tokens_per_s": run["tokens"] / sum(run["step_s"]),
+           "faults": wall, "salvage": sv, "gate": gate,
+           "broadcast": sched["broadcast"], "pool": sched["pool"],
+           "checkpoint": {"state_bytes": first["state_bytes"],
+                          "saves": first["ckpt"],
+                          "restores": first["restore"]},
+           "stream_chunk_install_ms_median": statistics.median(
+               first["chunk_ms"]) if first["chunk_ms"] else None,
+           "poisoned_steps_bitwise": first["poisoned"],
+           "evaluator": scores, "evaluator_launches": eval_launches,
+           "preprocess_kernel_vs_plain": path_check,
+           "replay": {"same": replay,
+                      "sampled_tokens_differing": diff_tokens,
+                      "rollouts": [len(a), len(b)],
+                      "losses_differing": losses},
+           "peak_mem_gib": run["peak_mem_gib"], "launches": run["launches"],
+           "expected_launches": want}
+    return _finish("faults", res, bad)
+
+
 def summary(kernels: list, paths: dict, gpu: str) -> list:
     """One entry per kernel: its case at the main path's shapes in bfloat16
     and its launches on the path that runs it (the serve phase for the slot
@@ -2583,6 +3263,11 @@ def main(argv=None) -> int:
     ap.add_argument("--mla-layers", type=int, default=2,
                     help="deepseek-v3-671b depth in the mla phase (61 "
                          "published; 2 run one dense and one MoE layer)")
+    ap.add_argument("--server-layers", type=int, default=32,
+                    help="llama3-8b depth in the server phase")
+    ap.add_argument("--faults-layers", type=int, default=2,
+                    help="granite-3-2b depth in the faults phase (40 "
+                         "published; a checkpoint of 2 layers is ~3.2 GB)")
     args = ap.parse_args(argv)
     phases = [p for p in args.only.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -2630,6 +3315,12 @@ def main(argv=None) -> int:
     if "mla" in phases:
         paths["mla"] = phase_mla(gpu, args.mla_layers)
         release_memory("mla", gpu)
+    if "server" in phases:
+        paths["server"] = phase_server(gpu, args.server_layers)
+        release_memory("server", gpu)
+    if "faults" in phases:
+        paths["faults"] = phase_faults(gpu, args.faults_layers)
+        release_memory("faults", gpu)
 
     emit({"kernels": summary(kernels, paths, gpu)})
     print(gpu, flush=True)

@@ -7,7 +7,8 @@ serving path of the dense GQA decoder (the continuous-batching
 paged cache with prefix-shared GRPO admission), the training path (`pack`,
 `Preprocessor`, `Trainer` with the REINFORCE loss, Adam and the non-finite
 guard) and the orchestration that drives them (`PipelineRL` on the event
-loop, `ConventionalRL`, the `HardwareModel` clock), for every
+loop, `ConventionalRL`, the `HardwareModel` clock, the request `Server`,
+the `Evaluator` and the `FaultPlan` fault injection), for every
 architecture of the JAX package (dense GQA, Mamba2, the Hymba hybrid, MoE,
 DeepSeek-V3's latent attention and MTP head, the multimodal prefix), with
 hand-written Hopper kernels for flash_decode, flash_decode_paged,
@@ -20,13 +21,15 @@ from repro_torch.convert import (params_from_numpy, params_to_numpy,
                                  train_state_from_numpy, train_state_to_numpy)
 from repro_torch.core.algo import RLConfig
 from repro_torch.core.conventional import ConventionalConfig, ConventionalRL
+from repro_torch.core.evaluator import Evaluator
 from repro_torch.core.events import (
-    ActorStage, EventLoop, PoolRouter, PreprocessStage, TrainerStage,
-    WeightBroadcaster,
+    ActorStage, EventLoop, Fault, FaultPlan, PoolRouter, PreprocessStage,
+    TrainerStage, WeightBroadcaster,
 )
 from repro_torch.core.pipeline import PipelineConfig, PipelineRL
 from repro_torch.core.preprocess import PreprocessConfig, Preprocessor
 from repro_torch.core.rollout import EngineConfig, GenerationEngine
+from repro_torch.core.serving import Request, Server
 from repro_torch.core.sim import HardwareModel
 from repro_torch.core.trainer import Trainer
 from repro_torch.data.packing import pack
@@ -34,9 +37,10 @@ from repro_torch.models.model import init_params
 from repro_torch.optim.adam import AdamConfig
 
 __all__ = ["ActorStage", "AdamConfig", "ConventionalConfig", "ConventionalRL",
-           "EngineConfig", "EventLoop", "GenerationEngine", "HardwareModel",
-           "ModelConfig", "PipelineConfig", "PipelineRL", "PoolRouter",
-           "PreprocessConfig", "PreprocessStage", "Preprocessor", "RLConfig",
+           "EngineConfig", "Evaluator", "EventLoop", "Fault", "FaultPlan",
+           "GenerationEngine", "HardwareModel", "ModelConfig",
+           "PipelineConfig", "PipelineRL", "PoolRouter", "PreprocessConfig",
+           "PreprocessStage", "Preprocessor", "RLConfig", "Request", "Server",
            "Trainer", "TrainerStage", "WeightBroadcaster", "get_config",
            "init_params", "pack", "params_from_numpy", "params_to_numpy",
            "train_state_from_numpy", "train_state_to_numpy"]

@@ -1,10 +1,11 @@
 """Event-driven orchestration: one discrete-event scheduler on which the
 pipeline's stages post callbacks against a shared simulated clock and
 react to each other's completions. `PipelineRL` and `ConventionalRL` are
-configurations of the same stage library. A port of the JAX package's
-`core/events.py` driving the port's engines, Preprocessor and Trainer; its
-fault injection (`Fault`, `FaultPlan`) is not ported yet (ROADMAP.md
-queue A.7).
+configurations of the same stage library, and so is the request `Server`
+(`core/serving.py`). A port of the JAX package's `core/events.py` driving
+the port's engines, Preprocessor and Trainer, with its fault injection;
+only the real-mesh broadcast executor is not ported (ROADMAP.md queue
+A.7e).
 
   ActorStage        owns one `GenerationEngine`; self-schedules decode
                     ticks; at each tick boundary it first installs any
@@ -12,6 +13,9 @@ queue A.7).
                     chunks, the only place weights may change, so per-token
                     version stamps stay exact), then steps the engine,
                     delivers finished rollouts downstream, and refills.
+                    Goes idle when the engine drains and `auto_refill` is
+                    off (ConventionalRL's phase end) or when externally
+                    driven (`chain=False`, the Server's `tick`).
                     `preempt(at, d)` takes the engine offline for [at,
                     at+d); in-flight slots are untouched and resume.
   PoolRouter        admission between one shared prompt source and the
@@ -32,7 +36,17 @@ queue A.7).
                     engine pauses for the whole transfer) or streamed
                     (chunks overlap decode; the engine pauses
                     `bcast_install_flash` per chunk and pointer-swaps on
-                    the last one).
+                    the last one). A fault plan's lossy link drops or
+                    damages chunks, which retransmit after a capped
+                    exponential backoff.
+  FaultPlan         failure as a deterministic event source (DESIGN.md §8,
+                    §10): engine crash and restart, trainer crash with
+                    checkpoint restore, preprocessor failure, a lossy or
+                    corrupting link, engine slowdown and hang, non-finite
+                    steps and poisoned prompts. Every decision is a
+                    function of (seed, fault identity, counter), never of
+                    wall-clock or iteration order, so two runs of one plan
+                    take the same faults at the same simulated times.
 
 Clock invariants: events fire in nondecreasing time order (FIFO on
 ties); a stage's own timeline is nondecreasing; rollout `finished_at`
@@ -50,8 +64,10 @@ survive between `run` calls while it lives.
 """
 from __future__ import annotations
 
+import dataclasses
 import heapq
 import os
+import re
 import weakref
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -62,8 +78,8 @@ from repro_torch.core.weights import (chunk_spans, chunk_token, span_bytes,
                                       stream_digest, tree_bytes, tree_flatten)
 from repro_torch.data.packing import Rollout, pack
 
-__all__ = ["ActorStage", "EventLoop", "HealthMonitor", "LagGate",
-           "PoolRouter", "PreprocessStage", "TrainerStage",
+__all__ = ["ActorStage", "EventLoop", "Fault", "FaultPlan", "HealthMonitor",
+           "LagGate", "PoolRouter", "PreprocessStage", "TrainerStage",
            "WeightBroadcaster", "apply_group_baseline", "chunk_spans",
            "chunk_token", "lag_stats", "span_bytes", "stream_digest",
            "tree_bytes"]
@@ -136,6 +152,395 @@ class EventLoop:
                 return
         raise RuntimeError("EventLoop.run exceeded max_events — "
                            "a stage is posting events without progress")
+
+
+# ---------------------------------------------------------------------------
+# fault plan (DESIGN.md §8 failure model)
+# ---------------------------------------------------------------------------
+
+# retransmit backstop: after this many lost transmissions of one chunk the
+# broadcaster delivers it anyway (a drop_prob<1 link terminates w.p. 1, but
+# a scripted drop_prob=1 window must not spin forever)
+_MAX_XMIT_ATTEMPTS = 16
+
+
+@dataclasses.dataclass
+class Fault:
+    """One scheduled fault.
+
+    Fail-stop kinds (DESIGN.md §8):
+
+      engine_crash     kill engine `engine` at `at` mid-decode (in-flight
+                       rollouts lost, prompts salvaged); restart after
+                       `restart_after` flashes, or permanent when None
+      trainer_crash    kill the trainer at `at` (in-flight step lost);
+                       restart from the last checkpoint after
+                       `restart_after` (None = permanent)
+      preprocess_fail  transient preprocessor failure at `at`: the
+                       in-flight batch's samples re-enter the SampleQueue
+      link_degrade     for [at, at+duration), streamed broadcast chunks to
+                       engine `engine` (None = every engine) are lost with
+                       probability `drop_prob` per transmission
+
+    Gray kinds (DESIGN.md §10 — the process survives but misbehaves):
+
+      engine_slowdown  for [at, at+duration), engine `engine`'s compute
+                       costs are multiplied by `factor` (>1): a degraded
+                       chip / noisy neighbor. The engine keeps working —
+                       the HealthMonitor's straggler detector is what
+                       notices and demotes it in the PoolRouter.
+      engine_hang      at `at`, engine `engine` stops completing ticks
+                       WITHOUT crashing (wedged process: slots held, no
+                       heartbeats). Only the HealthMonitor's watchdog can
+                       recover it — escalation runs the fail/salvage/
+                       requeue path; `restart_after` (from *detection*)
+                       schedules the restart, None = stays down.
+      chunk_corrupt    for [at, at+duration), streamed broadcast chunks
+                       to engine `engine` (None = all) arrive *damaged*
+                       with probability `drop_prob` per transmission: the
+                       per-chunk checksum gate detects them, the install
+                       is blocked, and the chunk retransmits via the
+                       same backoff machinery as a loss.
+      nan_step         the next `count` optimizer steps started at or
+                       after `at` produce non-finite gradients (the
+                       trainer's in-step guard must skip them).
+      poison_prompt    the `at`-th prompt drawn from the shared source
+                       (an ordinal, not a time) deterministically wedges
+                       whichever engine decodes it — the watchdog +
+                       K-attempt quarantine path is what breaks the
+                       crash-loop.
+    """
+    kind: str
+    at: float
+    engine: Optional[int] = None
+    restart_after: Optional[float] = None
+    duration: float = 0.0
+    drop_prob: float = 1.0
+    factor: float = 1.0      # engine_slowdown cost multiplier
+    count: int = 1           # nan_step: consecutive poisoned steps
+
+
+def _fault_sort_key(f: Fault):
+    """Total, None-safe ordering for fault schedules: `engine=None`
+    (pool-wide) sorts before any numbered engine instead of colliding
+    with `engine=0`, and every remaining field participates so plan
+    determinism never depends on insertion order."""
+    return (f.at, f.kind,
+            f.engine is not None, -1 if f.engine is None else f.engine,
+            f.restart_after is not None,
+            -1.0 if f.restart_after is None else f.restart_after,
+            f.duration, f.drop_prob, f.factor, f.count)
+
+
+class FaultPlan:
+    """Deterministic, replayable fault schedule for the event substrate.
+
+    Faults are injected by the orchestrator (`PipelineRL._schedule_faults`)
+    as ordinary events on the simulated clock, so failure interleaves with
+    decode/train/broadcast exactly like any other stage activity — and the
+    chunk-loss oracle is counter-based (`default_rng((seed, tag, engine,
+    version, chunk, attempt))`), i.e. a pure function of the fault identity
+    rather than of draw order. Two runs with the same plan (same seed for
+    `chaos()` plans) therefore produce bit-identical rollout streams.
+
+    Build scripted plans with the fluent helpers::
+
+        FaultPlan().engine_crash(300.0, engine=1, restart_after=150.0) \\
+                   .degrade_link(200.0, duration=100.0, drop_prob=0.5)
+
+    or seed-deterministic stochastic ones with `FaultPlan.chaos(seed, ...)`,
+    or parse the compact comma spec with `parse()`.
+    """
+
+    def __init__(self, faults: Sequence[Fault] = (), seed: int = 0):
+        self.faults: List[Fault] = list(faults)
+        self.seed = int(seed)
+
+    # ---- fluent builders ----------------------------------------------
+    def add(self, fault: Fault) -> "FaultPlan":
+        self.faults.append(fault)
+        return self
+
+    def engine_crash(self, at: float, engine: int = 0,
+                     restart_after: Optional[float] = None) -> "FaultPlan":
+        return self.add(Fault("engine_crash", float(at), engine=int(engine),
+                              restart_after=restart_after))
+
+    def trainer_crash(self, at: float,
+                      restart_after: Optional[float] = None) -> "FaultPlan":
+        return self.add(Fault("trainer_crash", float(at),
+                              restart_after=restart_after))
+
+    def preprocess_fail(self, at: float) -> "FaultPlan":
+        return self.add(Fault("preprocess_fail", float(at)))
+
+    def degrade_link(self, at: float, duration: float,
+                     engine: Optional[int] = None,
+                     drop_prob: float = 1.0) -> "FaultPlan":
+        return self.add(Fault("link_degrade", float(at),
+                              engine=None if engine is None else int(engine),
+                              duration=float(duration),
+                              drop_prob=float(drop_prob)))
+
+    # ---- gray-fault builders (DESIGN.md §10) --------------------------
+    def engine_slowdown(self, at: float, duration: float, engine: int = 0,
+                        factor: float = 4.0) -> "FaultPlan":
+        return self.add(Fault("engine_slowdown", float(at),
+                              engine=int(engine), duration=float(duration),
+                              factor=float(factor)))
+
+    def engine_hang(self, at: float, engine: int = 0,
+                    restart_after: Optional[float] = None) -> "FaultPlan":
+        return self.add(Fault("engine_hang", float(at), engine=int(engine),
+                              restart_after=restart_after))
+
+    def chunk_corrupt(self, at: float, duration: float,
+                      engine: Optional[int] = None,
+                      drop_prob: float = 1.0) -> "FaultPlan":
+        return self.add(Fault("chunk_corrupt", float(at),
+                              engine=None if engine is None else int(engine),
+                              duration=float(duration),
+                              drop_prob=float(drop_prob)))
+
+    def nan_step(self, at: float, count: int = 1) -> "FaultPlan":
+        return self.add(Fault("nan_step", float(at), count=int(count)))
+
+    def poison_prompt(self, ordinal: int) -> "FaultPlan":
+        """Poison the `ordinal`-th prompt drawn from the shared source
+        (`at` holds the ordinal — the 'when' of this fault is a draw
+        index, not a clock time)."""
+        return self.add(Fault("poison_prompt", float(int(ordinal))))
+
+    # ---- stochastic generation ----------------------------------------
+    @classmethod
+    def chaos(cls, seed: int, horizon: float, n_engines: int = 1,
+              n_crashes: int = 2, mean_outage: Optional[float] = None,
+              link_windows: int = 1, drop_prob: float = 0.3,
+              trainer_crashes: int = 0,
+              slowdowns: int = 0, slow_factor: float = 4.0,
+              hangs: int = 0, corrupt_windows: int = 0,
+              corrupt_prob: float = 0.3, nan_bursts: int = 0,
+              poison_prompts: int = 0) -> "FaultPlan":
+        """Seed-deterministic stochastic churn over `horizon` flashes:
+        `n_crashes` engine kill/restore pairs (spot-instance churn),
+        `link_windows` interconnect-degradation windows, and optional
+        trainer crashes. The gray knobs (`slowdowns`, `hangs`,
+        `corrupt_windows`, `nan_bursts`, `poison_prompts` — all default
+        0, so pre-existing plans reproduce draw-for-draw) add the
+        §10 gray fault kinds from the same seed stream. Same seed =>
+        same plan, draw for draw."""
+        rng = np.random.default_rng(int(seed))
+        plan = cls(seed=seed)
+        mean_outage = horizon / 8 if mean_outage is None else mean_outage
+        for _ in range(max(int(n_crashes), 0)):
+            plan.engine_crash(
+                at=float(rng.uniform(0.05, 0.7)) * horizon,
+                engine=int(rng.integers(max(n_engines, 1))),
+                restart_after=float(rng.exponential(mean_outage)) + 1.0)
+        for _ in range(max(int(link_windows), 0)):
+            plan.degrade_link(
+                at=float(rng.uniform(0.0, 0.8)) * horizon,
+                duration=float(rng.uniform(0.05, 0.25)) * horizon,
+                drop_prob=drop_prob)
+        for _ in range(max(int(trainer_crashes), 0)):
+            plan.trainer_crash(
+                at=float(rng.uniform(0.2, 0.8)) * horizon,
+                restart_after=float(rng.exponential(mean_outage)) + 1.0)
+        # gray kinds — drawn after the fail-stop kinds so plans built
+        # before these knobs existed keep their exact draw sequence
+        for _ in range(max(int(slowdowns), 0)):
+            plan.engine_slowdown(
+                at=float(rng.uniform(0.05, 0.6)) * horizon,
+                duration=float(rng.uniform(0.1, 0.3)) * horizon,
+                engine=int(rng.integers(max(n_engines, 1))),
+                factor=float(slow_factor))
+        for _ in range(max(int(hangs), 0)):
+            plan.engine_hang(
+                at=float(rng.uniform(0.05, 0.6)) * horizon,
+                engine=int(rng.integers(max(n_engines, 1))),
+                restart_after=float(rng.exponential(mean_outage)) + 1.0)
+        for _ in range(max(int(corrupt_windows), 0)):
+            plan.chunk_corrupt(
+                at=float(rng.uniform(0.0, 0.8)) * horizon,
+                duration=float(rng.uniform(0.05, 0.25)) * horizon,
+                drop_prob=corrupt_prob)
+        for _ in range(max(int(nan_bursts), 0)):
+            plan.nan_step(
+                at=float(rng.uniform(0.1, 0.8)) * horizon,
+                count=int(rng.integers(1, 3)))
+        for _ in range(max(int(poison_prompts), 0)):
+            plan.poison_prompt(int(rng.integers(2, 40)))
+        plan.faults.sort(key=_fault_sort_key)
+        return plan
+
+    # ---- chunk-loss oracle (consulted by WeightBroadcaster) -----------
+    def has_link_faults(self) -> bool:
+        """Any fault that perturbs streamed chunk transmission — loss or
+        corruption.  The broadcaster only takes the serialized lossy-
+        arrivals path when this is true, so healthy plans keep the exact
+        pre-fault arrival arithmetic (bit-equality of healthy runs)."""
+        return any(f.kind in ("link_degrade", "chunk_corrupt")
+                   for f in self.faults)
+
+    def chunk_lost(self, engine: int, version: int, chunk: int,
+                   attempt: int, t: float) -> bool:
+        """Is transmission `attempt` of chunk `chunk` of publication
+        `version` to `engine`, scheduled at time `t`, lost? Deterministic:
+        the Bernoulli draw is keyed on the fault identity, not draw order,
+        so replays agree regardless of event interleaving."""
+        for f in self.faults:
+            if f.kind != "link_degrade":
+                continue
+            if f.engine is not None and f.engine != engine:
+                continue
+            if not (f.at <= t < f.at + f.duration):
+                continue
+            if f.drop_prob >= 1.0:
+                return True
+            rng = np.random.default_rng(
+                (self.seed, 0x10ED, int(engine), int(version), int(chunk),
+                 int(attempt)))
+            return bool(rng.random() < f.drop_prob)
+        return False
+
+    def chunk_corrupted(self, engine: int, version: int, chunk: int,
+                        attempt: int, t: float) -> bool:
+        """Does transmission `attempt` of chunk `chunk` of publication
+        `version` to `engine`, scheduled at `t`, arrive *damaged*?
+        Counter-keyed like `chunk_lost` (distinct tag) so replays agree
+        regardless of event interleaving. A corrupt chunk is delivered —
+        the engine's checksum gate must reject it."""
+        for f in self.faults:
+            if f.kind != "chunk_corrupt":
+                continue
+            if f.engine is not None and f.engine != engine:
+                continue
+            if not (f.at <= t < f.at + f.duration):
+                continue
+            if f.drop_prob >= 1.0:
+                return True
+            rng = np.random.default_rng(
+                (self.seed, 0xC0F3, int(engine), int(version), int(chunk),
+                 int(attempt)))
+            return bool(rng.random() < f.drop_prob)
+        return False
+
+    # ---- gray-fault queries (consulted by stages / orchestrator) ------
+    def slowdown_factor(self, engine: int, t: float) -> float:
+        """Compute-cost multiplier for `engine` at time `t` (>= 1.0;
+        overlapping windows multiply)."""
+        factor = 1.0
+        for f in self.faults:
+            if (f.kind == "engine_slowdown" and f.engine == engine
+                    and f.at <= t < f.at + f.duration):
+                factor *= max(float(f.factor), 1.0)
+        return factor
+
+    def has_slowdown_faults(self) -> bool:
+        return any(f.kind == "engine_slowdown" for f in self.faults)
+
+    def nan_step_count(self, at: float) -> int:
+        """How many consecutive trainer steps starting at-or-after `at`
+        are poisoned (0 if no nan_step fault fires at `at`)."""
+        for f in self.faults:
+            if f.kind == "nan_step" and f.at == at:
+                return max(int(f.count), 1)
+        return 0
+
+    def poison_ordinals(self) -> List[int]:
+        """Ordinals (draw indices into the shared prompt source) of
+        poisoned prompts."""
+        return sorted(int(f.at) for f in self.faults
+                      if f.kind == "poison_prompt")
+
+    # ---- launcher spec ------------------------------------------------
+    _SPEC_RES = (
+        ("engine_crash",
+         re.compile(r"^engine:(\d+)@([\d.]+)(?:r([\d.]+))?$")),
+        ("trainer_crash", re.compile(r"^trainer@([\d.]+)(?:r([\d.]+))?$")),
+        ("preprocess_fail", re.compile(r"^pre@([\d.]+)$")),
+        ("link_degrade",
+         re.compile(r"^link(?::(\d+))?@([\d.]+)d([\d.]+)(?:p([\d.]+))?$")),
+        ("engine_slowdown",
+         re.compile(r"^slow:(\d+)@([\d.]+)d([\d.]+)(?:x([\d.]+))?$")),
+        ("engine_hang",
+         re.compile(r"^hang:(\d+)@([\d.]+)(?:r([\d.]+))?$")),
+        ("chunk_corrupt",
+         re.compile(r"^corrupt(?::(\d+))?@([\d.]+)d([\d.]+)(?:p([\d.]+))?$")),
+        ("nan_step", re.compile(r"^nan@([\d.]+)(?:x(\d+))?$")),
+        ("poison_prompt", re.compile(r"^poison@(\d+)$")),
+    )
+
+    @classmethod
+    def parse(cls, spec: str, n_engines: int = 1,
+              horizon: float = 2000.0) -> "FaultPlan":
+        """Compact fault spec: comma-separated faults —
+
+            engine:<i>@<t>[r<delay>]   kill engine i at t (restart after delay)
+            trainer@<t>[r<delay>]      trainer crash (checkpoint restore)
+            pre@<t>                    preprocessor failure
+            link[:<i>]@<t>d<dur>[p<p>] lossy interconnect window
+            slow:<i>@<t>d<dur>[x<f>]   engine i runs f-times slower over window
+            hang:<i>@<t>[r<delay>]     engine i wedges (watchdog recovers it)
+            corrupt[:<i>]@<t>d<dur>[p<p>]  corrupted-chunk window
+            nan@<t>[x<n>]              n non-finite trainer steps from t
+            poison@<n>                 n-th prompt drawn wedges its engine
+            chaos:<seed>[:<horizon>]   stochastic churn plan (see `chaos`)
+        """
+        spec = spec.strip()
+        m = re.match(r"^chaos:(\d+)(?::([\d.]+))?$", spec)
+        if m:
+            return cls.chaos(int(m.group(1)),
+                             float(m.group(2)) if m.group(2) else horizon,
+                             n_engines=n_engines, trainer_crashes=0)
+        plan = cls()
+        for part in filter(None, (p.strip() for p in spec.split(","))):
+            for kind, rx in cls._SPEC_RES:
+                m = rx.match(part)
+                if not m:
+                    continue
+                g = m.groups()
+                if kind == "engine_crash":
+                    plan.engine_crash(float(g[1]), engine=int(g[0]),
+                                      restart_after=(float(g[2])
+                                                     if g[2] else None))
+                elif kind == "trainer_crash":
+                    plan.trainer_crash(float(g[0]),
+                                       restart_after=(float(g[1])
+                                                      if g[1] else None))
+                elif kind == "preprocess_fail":
+                    plan.preprocess_fail(float(g[0]))
+                elif kind == "link_degrade":
+                    plan.degrade_link(
+                        float(g[1]), duration=float(g[2]),
+                        engine=int(g[0]) if g[0] else None,
+                        drop_prob=float(g[3]) if g[3] else 1.0)
+                elif kind == "engine_slowdown":
+                    plan.engine_slowdown(
+                        float(g[1]), duration=float(g[2]),
+                        engine=int(g[0]),
+                        factor=float(g[3]) if g[3] else 4.0)
+                elif kind == "engine_hang":
+                    plan.engine_hang(float(g[1]), engine=int(g[0]),
+                                     restart_after=(float(g[2])
+                                                    if g[2] else None))
+                elif kind == "chunk_corrupt":
+                    plan.chunk_corrupt(
+                        float(g[1]), duration=float(g[2]),
+                        engine=int(g[0]) if g[0] else None,
+                        drop_prob=float(g[3]) if g[3] else 1.0)
+                elif kind == "nan_step":
+                    plan.nan_step(float(g[0]),
+                                  count=int(g[1]) if g[1] else 1)
+                else:
+                    plan.poison_prompt(int(g[0]))
+                break
+            else:
+                raise ValueError(f"unparseable fault spec {part!r}")
+        return plan
+
+    def __repr__(self) -> str:
+        return f"FaultPlan(seed={self.seed}, faults={self.faults!r})"
 
 
 # ---------------------------------------------------------------------------
@@ -219,9 +624,12 @@ class ActorStage:
     """One generation engine on the event loop.
 
     step_cost(h) / prefill_cost(tokens, invocations) are the stage's cost
-    model: PipelineRL passes HardwareModel closures over its chip share.
-    `auto_refill=False` drains the engine and calls `on_drained`
-    (ConventionalRL's phase end). Weight publications
+    model: PipelineRL passes HardwareModel closures over its chip share,
+    the Server its step-denominated dt costs. `auto_refill=False` drains
+    the engine and calls `on_drained` (ConventionalRL's phase end);
+    `refill_first` admits before the decode step instead of after it, and
+    `chain=False` leaves the next tick to the caller (`tick`, the Server's
+    `step`). Weight publications
     arrive via `deliver_atomic` / `deliver_stream` and are installed only
     at tick boundaries (Algorithm 2 l. 9-11), charging the decode-pause
     the HardwareModel assigns to the mode.
@@ -233,7 +641,8 @@ class ActorStage:
                  prefill_cost: Callable[[int, int], float] = lambda t, i: 0.0,
                  page_cost: Callable[[int], float] = lambda p: 0.0,
                  deliver: Optional[Callable[[List[Rollout], float], None]] = None,
-                 auto_refill: bool = True,
+                 auto_refill: bool = True, refill_first: bool = False,
+                 chain: bool = True,
                  on_drained: Optional[Callable[[float], None]] = None,
                  recompute_kv: bool = False,
                  lag_gate: Optional["LagGate"] = None):
@@ -249,7 +658,8 @@ class ActorStage:
         self._lag_parked_at = 0.0
         self._lag_carry_pause = 0.0        # install pause owed at unpark
         self.deliver = deliver or (lambda rollouts, t: None)
-        self.auto_refill, self.on_drained = auto_refill, on_drained
+        self.auto_refill, self.refill_first = auto_refill, refill_first
+        self.chain, self.on_drained = chain, on_drained
         self.recompute_kv = recompute_kv
         self.running = False
         self.time = 0.0                    # this engine's own clock
@@ -272,6 +682,17 @@ class ActorStage:
         self.downtime = 0.0                # wall-time spent crashed
         self._epoch = 0                    # bumped on fail: stale queued
         #                                    tick chains become no-ops
+        # gray-failure surface (DESIGN.md §10): a hung stage is NOT
+        # failed — it holds its slots, stops completing ticks, and keeps
+        # `running=True`, so only an external watchdog reading the
+        # heartbeat (`last_tick_at`) can tell it from a busy engine
+        self.hung = False
+        self.hangs = 0
+        self.cost_scale: Optional[Callable[[float], float]] = None
+        #   ^ compute-cost multiplier vs time (engine_slowdown windows);
+        #     None on healthy plans so the tick arithmetic is untouched
+        self.poison_check = False          # plan poisons prompts: inspect
+        #                                    slots for a wedging prompt
         self.ticks_completed = 0
         self.last_tick_at: Optional[float] = None    # heartbeat
         self.ewma_tick_cost: Optional[float] = None  # EWMA decode-step
@@ -288,7 +709,7 @@ class ActorStage:
 
     _EWMA_ALPHA = 0.25                     # per-tick progress smoothing
 
-    # ---- weight delivery (called by the WeightBroadcaster) -------------
+    # ---- weight delivery (called by WeightBroadcaster / Server) --------
     def deliver_atomic(self, arrive: float, params, version: int,
                        pause: float) -> None:
         """Whole-tree publication arriving at `arrive`; the engine pauses
@@ -466,6 +887,8 @@ class ActorStage:
         if self.failed:
             return []
         self.failed = True
+        self.hung = False         # escalation path: a wedged stage is
+        #                           killed to be salvaged (DESIGN.md §10)
         self.failed_at = now
         self.failures += 1
         self._epoch += 1          # kill any queued tick chain
@@ -487,6 +910,21 @@ class ActorStage:
         self.rollouts_lost += eng.reset_slots()
         self.prompts_salvaged += len(salvaged)
         return salvaged
+
+    def hang(self, now: float) -> None:
+        """Gray failure (DESIGN.md §10): the engine wedges at `now`
+        WITHOUT crashing. The queued tick chain dies (epoch bump) but the
+        stage keeps `running=True` and `failed=False` — its slots hold
+        their prompts, pending weight deliveries pile up uninstalled, and
+        heartbeats (`last_tick_at`) simply stop. Nothing inside the stage
+        can recover it; only the `HealthMonitor` watchdog notices the
+        missed heartbeat deadline and escalates through the ordinary
+        fail/salvage/requeue path."""
+        if self.failed or self.hung:
+            return
+        self.hung = True
+        self.hangs += 1
+        self._epoch += 1          # queued ticks become stale no-ops
 
     def restore(self, now: float, params=None,
                 version: Optional[int] = None) -> None:
@@ -542,11 +980,16 @@ class ActorStage:
         return (self.prefill_cost(self.engine.last_admit_prefill_tokens, inv)
                 + self.page_cost(pages))
 
+    def tick(self, now: float) -> None:
+        """External tick entry point (the Server's step-driven mode);
+        self-scheduled chains go through `_post_tick`."""
+        self._tick(now, self._epoch)
+
     def _tick(self, now: float, epoch: int) -> None:
         """One decode step: install weights -> (refill) -> step -> deliver
         -> (refill) -> reschedule."""
-        if epoch != self._epoch or self.failed:
-            return   # stale chain from before a crash, or offline
+        if epoch != self._epoch or self.failed or self.hung:
+            return   # stale chain from before a crash/hang, or offline
         resume = self._preempt_until(now)
         if resume is not None:
             self.preempt_total += resume - now
@@ -580,13 +1023,24 @@ class ActorStage:
             self._post_tick(now)
             return
         c_pre = 0.0
-        if self.auto_refill and self.engine.n_active == 0:
+        if self.auto_refill and (self.refill_first
+                                 or self.engine.n_active == 0):
             c_pre += self._refill(now)
+        if self.poison_check and any(
+                p is not None and getattr(p, "_poison", False)
+                for p in self.engine.problems):
+            # a poisoned prompt wedges whichever engine admitted it the
+            # moment it would decode — the watchdog + K-attempt
+            # quarantine path is what breaks the resulting crash loop
+            self.hang(now)
+            return
         h = self.engine.n_active
         if h == 0:
-            # nothing to decode: drained (conventional phase end) or the
-            # source declined. Any weight-install pause stays on the
-            # timeline.
+            # nothing to decode: drained (conventional phase end), the
+            # source declined, or a server with no requests. The tick
+            # still consumes wall time under a per-step cost model
+            # (step_cost(0) is dt for the Server, 0 for the flash model)
+            # and any weight-install pause stays on the timeline.
             t = now + pause + c_pre + self.step_cost(0)
             self.time = max(self.time, t)
             self.deliver([], t)
@@ -596,6 +1050,12 @@ class ActorStage:
             return
         finished = self.engine.step(self.task, now=now)
         cost = self.step_cost(h)
+        if self.cost_scale is not None:
+            # gray degradation (engine_slowdown window): the chip is
+            # slower, so every compute charge on this tick scales
+            scale = self.cost_scale(now)
+            cost *= scale
+            c_pre *= scale
         t_done = now + pause + c_pre + cost
         for r in finished:
             r.finished_at = t_done
@@ -607,14 +1067,20 @@ class ActorStage:
             self._EWMA_ALPHA * cost
             + (1.0 - self._EWMA_ALPHA) * self.ewma_tick_cost)
         self.deliver(finished, t_done)
-        if self.auto_refill:
-            t_done += self._refill(t_done)
+        if self.auto_refill and not self.refill_first:
+            c_post = self._refill(t_done)
+            if self.cost_scale is not None:
+                c_post *= self.cost_scale(t_done)
+            t_done += c_post
         if self.engine.n_active == 0 and not self.auto_refill:
             self.running = False
             if self.on_drained is not None:
                 self.on_drained(t_done)
             return
-        self._post_tick(t_done)
+        if self.chain:
+            self._post_tick(t_done)
+        else:
+            self.running = False
 
 
 # ---------------------------------------------------------------------------
@@ -1091,6 +1557,11 @@ class PreprocessStage:
         self.busy = False
         self.busy_until = 0.0
         self.batches = 0
+        # failure recovery (DESIGN.md §8)
+        self.batches_failed = 0
+        self.rollouts_requeued = 0
+        self._epoch = 0
+        self._current: Optional[List[Rollout]] = None
 
     def kick(self, now: float) -> None:
         if self.busy or len(self.queue) < self.batch_size:
@@ -1102,6 +1573,7 @@ class PreprocessStage:
         if self.trainer_stage.inbox_waiting() > 0:
             return
         rollouts = self.queue.pop(self.batch_size)
+        self._current = rollouts   # salvageable until delivery
         raw_reward = float(np.mean([r.reward for r in rollouts]))
         t_avail = max((r.finished_at for r in rollouts), default=now)
         processed = self.pre.process(rollouts)
@@ -1110,13 +1582,38 @@ class PreprocessStage:
             sum(r.length for r in processed))
         self.busy, self.busy_until = True, done
         self.batches += 1
+        epoch = self._epoch
 
         def _deliver(t: float) -> None:
+            if epoch != self._epoch:
+                return   # the stage failed while this batch was in flight
             self.busy = False
+            self._current = None
             self.trainer_stage.submit(processed, t, raw_reward=raw_reward)
             self.kick(t)
 
         self.loop.post(done, _deliver)
+
+    def fail(self, now: float) -> int:
+        """Transient preprocessor failure (DESIGN.md §8): the in-flight
+        batch's *processing* is lost but its samples are not — the raw
+        rollouts go back to the FRONT of the SampleQueue (`requeue_front`:
+        oldest-first order preserved, `total_put` untouched) and are
+        reprocessed on the immediate restart kick. Returns the number of
+        rollouts salvaged."""
+        self._epoch += 1
+        n = 0
+        if self.busy and self._current is not None:
+            self.queue.requeue_front(self._current)
+            n = len(self._current)
+            self.rollouts_requeued += n
+        self.busy = False
+        self.busy_until = now   # the aborted batch's compute no longer
+        #                         gates the restarted stage
+        self._current = None
+        self.batches_failed += 1
+        self.kick(now)
+        return n
 
 
 # ---------------------------------------------------------------------------
@@ -1134,7 +1631,19 @@ class TrainerStage:
     When `ckpt_dir` is given, the stall is no longer just a pause: each
     checkpoint step atomically persists the full TrainState to
     `<ckpt_dir>/trainer_latest.npz` plus a rotated, checksummed
-    `trainer_step_<v>.npz` (last `ckpt_keep` kept).
+    `trainer_step_<v>.npz` (last `ckpt_keep` kept), and `crash`/`restore`
+    implement the crash-restart path of DESIGN.md §8 — a restore reloads
+    params + optimizer moments + version from the last durable
+    checkpoint, so the next optimizer step is bit-identical to the one
+    an uninterrupted run (from that checkpoint) would take.
+
+    The crash rollback keeps a reference to the pre-step TrainState. It is
+    a true snapshot because the step makes new tensors and never writes
+    into the old ones (`optim/adam.py`); it also keeps that second
+    TrainState alive on the device until the next step replaces it. A
+    restore loads into new tensors, so an engine still decoding with the
+    old ones is never written under; the restored weights reach the
+    engines by the next publication or a restart's catch-up sync.
 
     Numerical robustness (DESIGN.md §10): when the wrapped trainer runs
     with its non-finite guard, a non-finite step is skipped inside the
@@ -1142,8 +1651,7 @@ class TrainerStage:
     EWMA loss-spike detector (`loss_spike_factor` > 0) flags silently
     diverging steps the same way; `bad_step_rollback` consecutive bad
     steps restore the newest INTACT checkpoint (corrupt or truncated
-    files are skipped through the content checksum). Trainer crash and
-    restart come with the fault injection (ROADMAP.md queue A.7)."""
+    files are skipped through the content checksum)."""
 
     def __init__(self, loop: EventLoop, trainer, *, queue=None,
                  batch_size: int = 0,
@@ -1180,6 +1688,12 @@ class TrainerStage:
         self.ckpt_path: Optional[str] = None
         self.ckpts_saved = 0
         self.last_ckpt_version = 0
+        self.failed = False
+        self.crashes = 0
+        self.recoveries = 0
+        self.steps_lost = 0
+        self._epoch = 0
+        self._prestep_state = None
         self._rotated: List[str] = []   # rotated ckpt paths, oldest first
         # numerical robustness (DESIGN.md §10)
         self.bad_step_rollback = int(bad_step_rollback)
@@ -1189,6 +1703,7 @@ class TrainerStage:
         self.consecutive_bad = 0
         self.rollbacks = 0
         self.ckpts_corrupt = 0         # skipped by the intact-fallback
+        self._poison_pending = 0       # nan_step fault injection counter
         self._loss_ewma: Optional[float] = None
         # staleness contract (DESIGN.md §12): every packed batch carries
         # per-token lag vs the version this stage steps FROM; max_lag
@@ -1248,6 +1763,17 @@ class TrainerStage:
                 self.ckpts_corrupt += 1
         return None
 
+    # ---- nan_step fault injection (DESIGN.md §10) ---------------------
+    def poison_steps(self, count: int = 1) -> None:
+        """The next `count` optimizer steps produce non-finite gradients
+        (injected inside the step, `Trainer.step(poison=True)`, so the
+        guard is exercised end to end)."""
+        self._poison_pending += max(int(count), 0)
+
+    def inbox_depth(self) -> int:
+        """Batches owned by the trainer: waiting in the inbox + in step."""
+        return len(self._inbox) + (1 if self.busy else 0)
+
     def inbox_waiting(self) -> int:
         """Batches delivered but not yet started (excludes the running
         step) — the quantity the preprocessor's run-ahead bound is on."""
@@ -1261,7 +1787,7 @@ class TrainerStage:
         self.kick(now)
 
     def kick(self, now: float) -> None:
-        if self.busy:
+        if self.busy or self.failed:
             return
         if self._inbox:
             rollouts, raw_reward, avail, on_done = self._inbox.popleft()
@@ -1295,9 +1821,17 @@ class TrainerStage:
         for v, c in zip(*np.unique(lag_vals, return_counts=True)):
             self.lag_hist[int(v)] = self.lag_hist.get(int(v), 0) + int(c)
         self.lag_masked_tokens += int(stats.get("lag_masked", 0))
+        # pre-step snapshot (a reference: the step makes new tensors) —
+        # crash() rolls back to it so the eagerly computed step is truly
+        # lost if the trainer dies before `done`
+        self._prestep_state = self.trainer.state
         # the host batch goes straight in: the trainer stages it; returned
         # metrics stay on the device until the log entry below reads them
-        metrics = self.trainer.step(batch)
+        if self._poison_pending > 0:
+            self._poison_pending -= 1
+            metrics = self.trainer.step(batch, poison=True)
+        else:
+            metrics = self.trainer.step(batch)
         # §10 bad-step policy: a non-finite step was already dropped
         # inside the step (skip-and-count — state and version are
         # untouched); the optional loss-spike detector flags silent
@@ -1351,10 +1885,15 @@ class TrainerStage:
             entry["lag_masked"] = int(stats.get("lag_masked", 0))
         self.log.append(entry)
 
+        epoch = self._epoch
+
         def _finish(t: float) -> None:
+            if epoch != self._epoch:
+                return   # the trainer crashed while this step was in flight
             self.busy = False
-            # the checkpoint becomes durable when the step that produced
-            # it completes
+            # the checkpoint becomes *durable* only when the step that
+            # produced it completes: a crash mid-step loses both the step
+            # and its would-be checkpoint (exactly a real crash's window)
             if do_ckpt and self.ckpt_dir is not None:
                 self.ckpt_path = self._save_ckpt(version)
                 self.last_ckpt_version = version
@@ -1381,6 +1920,49 @@ class TrainerStage:
 
         self.loop.post(done, _finish)
 
+    # ---- crash-restart (DESIGN.md §8) ---------------------------------
+    def crash(self, now: float) -> None:
+        """Trainer process dies. The in-flight step (if any) is lost — its
+        completion callback is epoch-invalidated, its weights never
+        publish, and `steps_lost` counts it. Idempotent while down."""
+        if self.failed:
+            return
+        self.failed = True
+        self.crashes += 1
+        self._epoch += 1
+        if self.busy:
+            # the in-flight step was computed eagerly at schedule time;
+            # roll its effects back (state snapshot, log entry, history)
+            # so it is as if the crash interrupted the step itself
+            self.steps_lost += 1
+            self.trainer.state = self._prestep_state
+            if self.trainer.history:
+                self.trainer.history.pop()
+            if self.log:
+                self.log.pop()
+        self.busy = False
+
+    def restore(self, now: float) -> int:
+        """Restart the trainer. With a checkpoint directory, the full
+        TrainState (params + opt moments + version) reloads from the last
+        durable checkpoint — anything trained past it is rolled back, the
+        price of crash consistency. Without one this is a warm restart:
+        in-memory state survives (the single-process co-sim has no real
+        process boundary) but the in-flight step stays lost. Returns the
+        version training resumes from."""
+        if not self.failed:
+            return self.trainer.version
+        self.failed = False
+        self.recoveries += 1
+        self.free_at = max(self.free_at, now)
+        if self.ckpt_path is not None:
+            # newest-intact fallback (DESIGN.md §10): `trainer_latest`
+            # first — bit-identical to the plain restart when it is
+            # healthy — then the rotated files, newest to oldest
+            self.restore_newest_intact()
+        self.kick(now)
+        return self.trainer.version
+
 
 # ---------------------------------------------------------------------------
 # weight broadcaster
@@ -1401,39 +1983,103 @@ class WeightBroadcaster:
                  pauses `bcast_install_flash` per installed chunk and
                  pointer-swaps on the last (the paper's "brief pause")
 
-    Actors whose stage has `failed` set are skipped (a rejoining engine
-    gets a catch-up atomic sync before admission). Every streamed chunk
-    carries its checksum token and the publication its digest, which the
-    engine verifies. The lossy link of the fault injection is not ported
-    (ROADMAP.md queue A.7)."""
+    Failure semantics (DESIGN.md §8): actors whose stage has `failed`
+    set are skipped entirely (no ghost deliveries into a dead engine; a
+    rejoining engine instead gets a catch-up atomic sync before
+    admission). Every streamed chunk carries its checksum token and the
+    publication its digest, which the engine verifies. With a
+    `fault_plan` carrying link faults, the streamed path models a lossy
+    interconnect: each chunk transmission consults
+    `fault_plan.chunk_lost(engine, version, chunk, attempt, t)` — a pure
+    function of the fault identity, so replays are bit-equal — and lost
+    chunks retransmit after a capped exponential backoff
+    (`t_chunk * min(retransmit_backoff_chunks * 2**attempt,
+    backoff_cap_chunks)`), preserving in-order chunk installs."""
 
     def __init__(self, hw, actors: Sequence[ActorStage],
-                 mode: str = "streamed", n_chunks: int = 8):
+                 mode: str = "streamed", n_chunks: int = 8,
+                 fault_plan: Optional["FaultPlan"] = None,
+                 retransmit_backoff_chunks: float = 1.0,
+                 backoff_cap_chunks: float = 16.0):
         if mode not in ("free", "atomic", "streamed"):
             raise ValueError(f"unknown broadcast mode {mode!r}")
         self.hw, self.actors, self.mode = hw, list(actors), mode
         self.n_chunks = max(int(n_chunks), 1)
+        self.fault_plan = fault_plan
+        self.retransmit_backoff_chunks = retransmit_backoff_chunks
+        self.backoff_cap_chunks = backoff_cap_chunks
         self.published = 0
         self.bytes_published = 0
+        self.chunks_lost = 0
+        self.chunks_corrupt = 0
+        self.retransmit_wait = 0.0
         self.deliveries_skipped = 0
+
+    def _backoff(self, t_chunk: float, attempt: int) -> float:
+        backoff = t_chunk * min(
+            self.retransmit_backoff_chunks * (2.0 ** attempt),
+            self.backoff_cap_chunks)
+        self.retransmit_wait += backoff
+        return backoff
+
+    def _lossy_arrivals(self, engine: int, version: int, base: float,
+                        t_chunk: float, good: Sequence[int]
+                        ) -> Tuple[List[float], List[Optional[int]]]:
+        """Serialized chunk cursor over a lossy link: chunk k cannot start
+        until chunk k-1 landed; each lost transmission burns its slot plus
+        a backoff before the retry. Corrupt transmissions (DESIGN.md §10)
+        *do* arrive — with a damaged integrity token the engine-side gate
+        will reject — then retransmit on the same backoff schedule as a
+        loss, so both gray kinds share one recovery path."""
+        arrivals: List[float] = []
+        tokens: List[Optional[int]] = []
+        cursor = base
+        for k in range(self.n_chunks):
+            attempt = 0
+            while True:
+                cursor += t_chunk
+                if attempt >= _MAX_XMIT_ATTEMPTS:
+                    break
+                if self.fault_plan.chunk_lost(engine, version, k, attempt,
+                                              cursor):
+                    self.chunks_lost += 1
+                    cursor += self._backoff(t_chunk, attempt)
+                    attempt += 1
+                    continue
+                if k < len(good) and self.fault_plan.chunk_corrupted(
+                        engine, version, k, attempt, cursor):
+                    # delivered but damaged: the receiver sees the chunk,
+                    # its checksum mismatches, and the sender retransmits
+                    self.chunks_corrupt += 1
+                    arrivals.append(cursor)
+                    tokens.append(good[k] ^ 0x5AD0BAD)
+                    cursor += self._backoff(t_chunk, attempt)
+                    attempt += 1
+                    continue
+                break
+            arrivals.append(cursor)
+            tokens.append(good[k] if k < len(good) else None)
+        return arrivals, tokens
 
     def publish(self, params, version: int, now: float) -> None:
         self.published += 1
-        targets = [a for a in self.actors if not getattr(a, "failed", False)]
+        targets = [(i, a) for i, a in enumerate(self.actors)
+                   if not getattr(a, "failed", False)]
         self.deliveries_skipped += len(self.actors) - len(targets)
         nbytes = tree_bytes(params)
         self.bytes_published += nbytes * len(targets)
         if self.mode == "free":
-            for a in targets:
+            for _, a in targets:
                 a.deliver_atomic(now, params, version, pause=0.0)
             return
         t_full = self.hw.broadcast_time(nbytes)
         if self.mode == "atomic":
-            for j, a in enumerate(targets):
+            for j, (_, a) in enumerate(targets):
                 a.deliver_atomic(now + (j + 1) * t_full, params, version,
                                  pause=t_full)
             return
         t_chunk = t_full / self.n_chunks
+        lossy = self.fault_plan is not None and self.fault_plan.has_link_faults()
         # integrity gate: per-chunk checksum tokens and the publication
         # digest, computed from the same deterministic span table the
         # engines derive on their own
@@ -1441,12 +2087,18 @@ class WeightBroadcaster:
         sizes = span_bytes(leaves, chunk_spans(leaves, self.n_chunks))
         good = [chunk_token(version, k, sizes[k]) for k in range(len(sizes))]
         digest = stream_digest(good)
-        for j, a in enumerate(targets):
+        for j, (i, a) in enumerate(targets):
             base = now + j * t_full
-            arrivals = [base + (k + 1) * t_chunk
-                        for k in range(self.n_chunks)]
-            tokens = [good[k] if k < len(good) else None
-                      for k in range(self.n_chunks)]
+            if lossy:
+                arrivals, tokens = self._lossy_arrivals(
+                    i, version, base, t_chunk, good)
+            else:
+                # keep the exact pre-fault arithmetic on healthy links so
+                # no-fault runs stay bit-identical to earlier behavior
+                arrivals = [base + (k + 1) * t_chunk
+                            for k in range(self.n_chunks)]
+                tokens = [good[k] if k < len(good) else None
+                          for k in range(self.n_chunks)]
             a.deliver_stream(params, version, arrivals,
                              install_pause=self.hw.bcast_install_flash,
                              tokens=tokens, n_chunks=self.n_chunks,
@@ -1470,6 +2122,9 @@ class WeightBroadcaster:
             "mode": self.mode,
             "published": self.published,
             "bytes_published": self.bytes_published,
+            "chunks_lost": self.chunks_lost,
+            "chunks_corrupt": self.chunks_corrupt,
+            "retransmit_wait": self.retransmit_wait,
             "deliveries_skipped": self.deliveries_skipped,
             "engines": per_engine,
         }

@@ -16,13 +16,19 @@ each actor applies arrived weight publications at its next decode-step
 boundary. Engines in one pool share the trainer's parameter tensors (the
 trainer's Adam makes new tensors, never writing into them).
 
+A `fault_plan` (`core/events.py` `FaultPlan`) injects faults as ordinary
+events on the simulated clock: engine crash and restart, engine hang
+(healed by the `HealthMonitor`), engine slowdown, trainer crash and
+checkpoint restore, preprocessor failure, a lossy or corrupting weight
+link, non-finite steps and poisoned prompts.
+
 Ownership runs one way (`core/events.py`): `PipelineRL` holds the loop,
 whose heap holds the stages, which hold the engines and the trainer. No
-callback refers back to `PipelineRL` strongly, so a dropped pipeline frees
-its device memory by reference counting.
+callback refers back to `PipelineRL` strongly (the fault events too), so a
+dropped pipeline frees its device memory by reference counting.
 
-Fault injection (`fault_plan`) and mesh placement (`mesh`, `rules`) are
-not ported yet (ROADMAP.md queue A.7).
+Mesh placement (`mesh`, `rules`) is not ported yet (ROADMAP.md queue
+A.7e).
 """
 from __future__ import annotations
 
@@ -93,6 +99,22 @@ class PipelineConfig:
     health: HealthConfig = dataclasses.field(default_factory=HealthConfig)
 
 
+def _wrap_poison(source: Callable, ordinals) -> Callable:
+    """Count draws from the shared prompt source and stamp `_poison` on the
+    ordinals the fault plan names."""
+    state = {"n": 0}
+
+    def draw():
+        p = source()
+        if p is not None:
+            if state["n"] in ordinals:
+                p._poison = True  # type: ignore[attr-defined]
+            state["n"] += 1
+        return p
+
+    return draw
+
+
 class PipelineRL:
     """The paper's system: run with `.run()`, read `.log` for R(t)/R(S).
     Builds its Trainer (unless given one) and engines on `device`, the card
@@ -105,12 +127,11 @@ class PipelineRL:
                  preprocessor=None,
                  prompt_source: Optional[Callable] = None,
                  fault_plan=None, mesh=None, rules=None, device="cuda"):
-        for name, arg in (("fault_plan", fault_plan), ("mesh", mesh),
-                          ("rules", rules)):
+        for name, arg in (("mesh", mesh), ("rules", rules)):
             if arg is not None:
                 raise NotImplementedError(
-                    f"PipelineRL({name}=...): fault injection and mesh "
-                    f"placement are not ported yet (ROADMAP.md queue A.7)")
+                    f"PipelineRL({name}=...): mesh placement is not ported "
+                    f"yet (ROADMAP.md queue A.7e)")
         self.device = resolve_device(device)
         self.cfg, self.task, self.ec, self.pc, self.hw = cfg, task, ec, pc, hw
         self.trainer = trainer or Trainer(cfg, params, device=self.device)
@@ -119,7 +140,9 @@ class PipelineRL:
         self.log: List[Dict] = []
         self.loop = EventLoop()
         self.seed = seed
-        # pool membership changes: joins, detaches, detected hangs, restores
+        self.fault_plan = fault_plan
+        # injected faults and pool membership changes: crashes, hangs and
+        # their detection, restores, joins, detaches
         self.fault_log: List[Dict] = []
 
         # --- actor pool: n_engines independent engines, each with its own
@@ -136,7 +159,15 @@ class PipelineRL:
                              f"for n_engines={n_eng}")
         self.engine_speeds = speeds
         loop = weakref.proxy(self.loop)
-        self.router = PoolRouter(prompt_source or task.sample,
+        # poison-prompt faults mark the Nth draw from the shared source
+        # (§10): the wrapper stamps `_poison` on exactly those ordinals,
+        # so whichever engine admits the prompt deterministically wedges
+        self._poison_ordinals = (set(fault_plan.poison_ordinals())
+                                 if fault_plan is not None else set())
+        src = prompt_source or task.sample
+        if self._poison_ordinals:
+            src = _wrap_poison(src, self._poison_ordinals)
+        self.router = PoolRouter(src,
                                  policy=pc.router,
                                  lookahead=pc.router_lookahead,
                                  slack=pc.router_slack,
@@ -190,12 +221,14 @@ class PipelineRL:
             self._make_actor(i, eng, speeds[i])
             for i, eng in enumerate(self.engines)]
         self.broadcaster = WeightBroadcaster(
-            hw, self.actors, mode=pc.broadcast, n_chunks=pc.broadcast_chunks)
+            hw, self.actors, mode=pc.broadcast, n_chunks=pc.broadcast_chunks,
+            fault_plan=fault_plan)
         self.trainer_stage.broadcaster = self.broadcaster
         # watchdog: hang and straggler detection over the pool; a detected
         # hang escalates through fail/salvage/requeue, and repeat-offender
         # prompts are quarantined
         self.monitor: Optional[HealthMonitor] = None
+        self._hang_restart: Dict[int, List[float]] = {}
         hc = pc.health
         if hc.enabled:
             self.monitor = HealthMonitor(
@@ -206,6 +239,8 @@ class PipelineRL:
                 straggler_patience=hc.straggler_patience,
                 quarantine_after=hc.quarantine_after,
                 on_hang=weak_method(self._on_hang))
+        if fault_plan is not None:
+            self._schedule_faults(fault_plan)
 
     def _make_engine(self, i: int) -> GenerationEngine:
         """Pool engine i, on the trainer's parameter tensors."""
@@ -222,13 +257,22 @@ class PipelineRL:
         capacity is attached in practice."""
         c = self._chips_per_engine
         m = self.hw.scaled(speed)
-        return ActorStage(
+        a = ActorStage(
             self.loop, eng, task=self.task, name=f"actor{i}",
             step_cost=lambda h: m.step_cost(h / max(c, 1e-9)),
             prefill_cost=lambda toks, inv: m.prefill_time(toks, max(c, 1)),
             page_cost=m.page_touch_time,
             deliver=self._deliver, recompute_kv=self.pc.recompute_kv,
             lag_gate=self.lag_gate)
+        plan = self.fault_plan
+        if plan is not None and plan.has_slowdown_faults():
+            # gray degradation (§10): the plan's windows scale this
+            # engine's decode cost; outside a window the factor is 1.0
+            # (bitwise no-op for finite costs)
+            a.cost_scale = lambda t, i=i: plan.slowdown_factor(i, t)
+        if self._poison_ordinals:
+            a.poison_check = True
+        return a
 
     # ----- compatibility surface ---------------------------------------
     @property
@@ -297,7 +341,84 @@ class PipelineRL:
             st["gate"] = self.lag_gate.stats()
         return st
 
-    # ----- elastic pool and hang recovery (DESIGN.md §8, §10) ----------
+    # ----- fault injection + elastic pool (DESIGN.md §8, §10) ----------
+    def _schedule_faults(self, plan) -> None:
+        """Post the plan's faults onto the event loop. Link faults need no
+        events — the broadcaster consults the plan per chunk transmission;
+        everything else becomes a timed crash (+ optional timed restore).
+        The events call back through weak methods (the loop is the
+        pipeline's own)."""
+        n_eng = len(self.engines)
+        fail = weak_method(self._fail_engine)
+        restore = weak_method(self.restore_engine)
+        hang = weak_method(self._hang_engine)
+        ts = self.trainer_stage
+
+        def engine_of(f) -> int:
+            i = int(f.engine or 0)
+            if not 0 <= i < n_eng:
+                raise ValueError(
+                    f"fault targets engine {i} of a {n_eng}-engine pool")
+            return i
+
+        for f in plan.faults:
+            if f.kind == "engine_crash":
+                i = engine_of(f)
+                self.loop.post(f.at, lambda t, i=i: fail(i, t))
+                if f.restart_after is not None:
+                    self.loop.post(f.at + f.restart_after,
+                                   lambda t, i=i: restore(i, t))
+            elif f.kind == "trainer_crash":
+                self.loop.post(f.at, weak_method(self._crash_trainer))
+                if f.restart_after is not None:
+                    self.loop.post(f.at + f.restart_after,
+                                   weak_method(self._restore_trainer))
+            elif f.kind == "preprocess_fail":
+                self.loop.post(f.at, weak_method(self._fail_preprocess))
+            elif f.kind == "engine_hang":
+                i = engine_of(f)
+                self.loop.post(f.at, lambda t, i=i: hang(i, t))
+                if f.restart_after is not None:
+                    # consumed at *detection* (the watchdog finds the hang;
+                    # nothing fires at a wall-clock restore time — a hang
+                    # has no self-announcing crash event to anchor one)
+                    self._hang_restart.setdefault(i, []).append(
+                        float(f.restart_after))
+            elif f.kind == "engine_slowdown":
+                # no event: the actor's cost_scale closure consults the
+                # plan's windows per tick (installed in _make_actor)
+                engine_of(f)
+            elif f.kind == "nan_step":
+                self.loop.post(
+                    f.at, lambda t, n=max(int(f.count), 1):
+                    ts.poison_steps(n))
+            elif f.kind not in ("link_degrade", "chunk_corrupt",
+                                "poison_prompt"):
+                # link/corruption faults are consulted per transmission by
+                # the broadcaster; poison prompts by the source wrapper
+                raise ValueError(f"unknown fault kind {f.kind!r}")
+
+    def _fail_engine(self, i: int, t: float) -> None:
+        """Kill engine i mid-decode: its live slots' prompts are salvaged
+        and re-offered (front of the router's pending buffer) to the
+        surviving engines; partially decoded tokens are lost
+        (`rollouts_lost`). Idle survivors are kicked so the salvaged work
+        is picked up immediately."""
+        a = self.actors[i]
+        if a.failed:
+            return
+        salvaged = a.fail(t)
+        self.router.set_alive(i, False)
+        n_quar = self._requeue_salvaged(salvaged, t)
+        for j, other in enumerate(self.actors):
+            if j != i and not other.failed:
+                other.start(t)
+        self.fault_log.append({
+            "kind": "engine_crash", "engine": i, "at": t,
+            "prompts_salvaged": len(salvaged),
+            "prompts_quarantined": n_quar,
+            "rollouts_lost": a.rollouts_lost})
+
     def _requeue_salvaged(self, salvaged, t: float) -> int:
         """Route salvaged prompts back to the pool through the monitor's
         failure attribution (§10): repeat offenders are quarantined —
@@ -314,12 +435,23 @@ class PipelineRL:
             self.router.requeue(requeue, now=t)
         return len(quarantine)
 
+    def _hang_engine(self, i: int, t: float) -> None:
+        """Inject a gray hang: engine i wedges without crashing. Nothing
+        is salvaged here — only the HealthMonitor's missed-heartbeat
+        deadline can notice and escalate (`_on_hang`)."""
+        a = self.actors[i]
+        if a.failed or a.hung:
+            return
+        a.hang(t)
+        self.fault_log.append({"kind": "engine_hang", "engine": i, "at": t})
+
     def _on_hang(self, i: int, t: float) -> None:
         """Watchdog escalation: treat the wedged engine exactly like an
         operator-killed process — fail/salvage, attribute the failure to
         the stranded prompts (quarantining repeat offenders), requeue the
-        rest to survivors, and schedule a restart after the health
-        policy's `hang_restart_after`."""
+        rest to survivors, and schedule a restart (the fault plan's
+        `restart_after` if it named one, else the health policy's
+        `hang_restart_after`)."""
         a = self.actors[i]
         if a.failed:
             return
@@ -333,7 +465,9 @@ class PipelineRL:
             "kind": "engine_hang_detected", "engine": i, "at": t,
             "prompts_salvaged": len(salvaged),
             "prompts_quarantined": n_quar})
-        delay = self.pc.health.hang_restart_after
+        pending = self._hang_restart.get(i)
+        delay = (pending.pop(0) if pending
+                 else self.pc.health.hang_restart_after)
         if delay is not None:
             restore = weak_method(self.restore_engine)
             self.loop.post(t + float(delay),
@@ -357,6 +491,22 @@ class PipelineRL:
         self.fault_log.append({
             "kind": "engine_restore", "engine": i, "at": t,
             "version": self.trainer.version, "downtime": a.downtime})
+
+    def _crash_trainer(self, t: float) -> None:
+        self.trainer_stage.crash(t)
+        self.fault_log.append({
+            "kind": "trainer_crash", "at": t,
+            "steps_lost": self.trainer_stage.steps_lost})
+
+    def _restore_trainer(self, t: float) -> None:
+        v = self.trainer_stage.restore(t)
+        self.fault_log.append({
+            "kind": "trainer_restore", "at": t, "version": v})
+
+    def _fail_preprocess(self, t: float) -> None:
+        n = self.pre_stage.fail(t) if self.pre_stage is not None else 0
+        self.fault_log.append({
+            "kind": "preprocess_fail", "at": t, "rollouts_requeued": n})
 
     def add_engine(self, speed: float = 1.0,
                    at: Optional[float] = None) -> int:
@@ -427,6 +577,9 @@ class PipelineRL:
         st["prompts_quarantined"] = (self.monitor.prompts_quarantined
                                      if self.monitor is not None else 0)
         st["trainer"] = {
+            "crashes": self.trainer_stage.crashes,
+            "recoveries": self.trainer_stage.recoveries,
+            "steps_lost": self.trainer_stage.steps_lost,
             "ckpts_saved": self.trainer_stage.ckpts_saved,
             "last_ckpt_version": self.trainer_stage.last_ckpt_version,
             # numerical robustness (DESIGN.md §10)
@@ -437,6 +590,9 @@ class PipelineRL:
             "nonfinite_steps": getattr(self.trainer, "nonfinite_steps", 0),
         }
         st["broadcast"] = {
+            "chunks_lost": self.broadcaster.chunks_lost,
+            "chunks_corrupt": self.broadcaster.chunks_corrupt,
+            "retransmit_wait": self.broadcaster.retransmit_wait,
             "deliveries_skipped": self.broadcaster.deliveries_skipped,
             "wchunks_rejected": sum(getattr(e, "wchunks_rejected", 0)
                                     for e in self.engines),

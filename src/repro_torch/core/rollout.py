@@ -477,6 +477,31 @@ class GenerationEngine:
         self._deferred.clear()
         return out
 
+    def kill_slot(self, s: int) -> Optional[Problem]:
+        """Kill ONE live slot without crashing the engine (the Server's
+        quarantine path): the slot's rollout-in-progress is abandoned as in
+        `reset_slots` (tokens and KV left for reuse; paged, its pages,
+        shared prefix refs included, return to the pool) and its prompt is
+        handed back so the caller can quarantine or requeue it. Returns None
+        for an inactive slot."""
+        s = int(s)
+        if not self._host_active[s]:
+            return None
+        prob = self.problems[s]
+        self._host_active[s] = False
+        self._host_ncached[s] = 0
+        self._host_prompt_len[s] = 1
+        self.problems[s] = None
+        if self._paged:
+            self.tables.release_row(s)
+            self._bt_dirty = True
+            self._sync_tables()
+        st = self.state
+        st["n_cached"][s] = 0
+        st["prompt_len"][s] = 1
+        st["active"][s] = False
+        return prob
+
     # ----- paged-cache machinery ----------------------------------------
     @property
     def free_pages(self) -> int:

@@ -11,7 +11,7 @@ returns new tensors, never writing into the old ones.
 Per-step metrics stay on the device: `Trainer.step` returns a
 `LazyMetrics` view, and the host reads a record in one device-to-host copy
 when (and if) a value is asked for. The JAX package's mesh placement is
-not ported (ROADMAP.md queue A.7).
+not ported (ROADMAP.md queue A.7e).
 """
 from __future__ import annotations
 

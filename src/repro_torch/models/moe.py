@@ -15,7 +15,7 @@ its neighbours (ROADMAP.md C.9).
 
 The expert products are `torch.bmm`, as the JAX package computes them
 outside any Pallas kernel. Its expert-parallel branch (`shard_map` over the
-"model" mesh axis) waits for the port's distribution (ROADMAP.md A.7).
+"model" mesh axis) waits for the port's distribution (ROADMAP.md A.7e).
 """
 from __future__ import annotations
 

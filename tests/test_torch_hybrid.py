@@ -57,12 +57,20 @@ from repro_torch.core.weights import tree_flatten
 from repro_torch.data.math_task import MathTask, Problem
 from repro_torch.data.packing import Rollout, pack
 from repro_torch.models import model as M
+from torch_twin import one_thread
 
 JTASK, TASK = JaxTask(max_operand=5, ops="+"), MathTask(max_operand=5, ops="+")
 VOCAB = TASK.tok.vocab_size
 ATOL = 1e-5
 CHUNKED_ATOL = 1e-4
 CPU = {"device": "cpu"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread for the module (`torch_twin.one_thread`)."""
+    with one_thread():
+        yield
 
 
 def _configs(**kw):
@@ -213,30 +221,54 @@ def test_forward_decode_and_prefill_match_jax(hyb):
 # the engine
 # ---------------------------------------------------------------------------
 
+LEGACY_EC = dict(n_slots=3, max_len=24, prefill_chunk=0, temperature=1e-6,
+                 page_size=8)
+
+
+def _legacy_loop(eng, task):
+    """Refill and step until nothing is active: (admitted per refill,
+    rollouts)."""
+    admitted, out = [], []
+    for _ in range(300):
+        admitted.append(eng.refill())
+        if eng.n_active == 0:
+            break
+        out += eng.step(task)
+    return admitted, out
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_legacy(cache):
+    """The JAX package's token-at-a-time engine over LENGTHS (prompts of
+    seed 0, engine seed 1), run once and shared by the legacy and chunked
+    admission tests."""
+    jcfg, tcfg = _configs()
+    jp, _ = _params(jcfg, tcfg)
+    jprobs, _ = _prompts(LENGTHS)
+    jeng = JaxEngine(jcfg, jp, JaxEngineConfig(cache=cache, **LEGACY_EC),
+                     _source(jprobs), seed=1)
+    admitted, out = _legacy_loop(jeng, JTASK)
+    return (jeng._paged, admitted, out, jeng.tokens_generated,
+            jeng.allocator.live_pages if jeng._paged else 0)
+
+
 @pytest.mark.parametrize("cache", ["slots", "paged"])
 def test_legacy_engine_matches_jax_legacy_loop(hyb, cache):
     """Token-at-a-time admission in both packages, slot cache and paged
-    pool: the state after the first refill's forcing and every rollout."""
+    pool: the rows admitted by every refill and every rollout."""
     jcfg, tcfg, jp, tp = hyb
-    jprobs, tprobs = _prompts(LENGTHS)
-    ec = dict(n_slots=3, max_len=24, prefill_chunk=0, temperature=1e-6,
-              cache=cache, page_size=8)
-    jeng = JaxEngine(jcfg, jp, JaxEngineConfig(**ec), _source(jprobs), seed=1)
-    teng = GenerationEngine(tcfg, tp, EngineConfig(**ec), _source(tprobs),
-                            seed=1, **CPU)
-    assert teng._paged == (cache == "paged") == jeng._paged
-    jout, tout = [], []
-    for _ in range(300):
-        assert jeng.refill() == teng.refill()
-        if jeng.n_active == 0 and teng.n_active == 0:
-            break
-        jout += jeng.step(JTASK)
-        tout += teng.step(TASK)
+    _, tprobs = _prompts(LENGTHS)
+    teng = GenerationEngine(tcfg, tp, EngineConfig(cache=cache, **LEGACY_EC),
+                            _source(tprobs), seed=1, **CPU)
+    jpaged, jadmitted, jout, jtokens, jlive = _jax_legacy(cache)
+    assert teng._paged == (cache == "paged") == jpaged
+    admitted, tout = _legacy_loop(teng, TASK)
+    assert admitted == jadmitted
     _same(jout, tout)
     assert len(tout) == len(LENGTHS)
-    assert teng.tokens_generated == jeng.tokens_generated
+    assert teng.tokens_generated == jtokens
     if cache == "paged":
-        assert teng.allocator.live_pages == jeng.allocator.live_pages == 0
+        assert teng.allocator.live_pages == jlive == 0
 
 
 @pytest.mark.parametrize("ring", [False, True], ids=["full", "ring"])
@@ -250,19 +282,25 @@ def test_chunked_admission_matches_legacy(ring):
         if ring else {}
     jcfg, tcfg = _configs(**kw)
     jp, tp = _params(jcfg, tcfg)
-    lengths = [18, 9, 22, 13] if ring else LENGTHS
+    # the full cache takes the legacy test's prompts and seeds, so the JAX
+    # legacy run is the one that test made (`_jax_legacy`)
+    lengths, pseed, seed = ([18, 9, 22, 13], 2, 3) if ring else \
+        (LENGTHS, 0, 1)
     ec = dict(n_slots=3, max_len=32 if ring else 24, temperature=1e-6)
     outs = {}
     for chunk in (4, 0):
-        _, probs = _prompts(lengths, seed=2)
+        _, probs = _prompts(lengths, seed=pseed)
         eng = GenerationEngine(tcfg, tp, EngineConfig(
-            prefill_chunk=chunk, **ec), _source(probs), seed=3, **CPU)
+            prefill_chunk=chunk, **ec), _source(probs), seed=seed, **CPU)
         assert eng._cache_len == (16 if ring else 24)
         outs[chunk] = _drain(eng, TASK)
-    jprobs, _ = _prompts(lengths, seed=2)
-    jeng = JaxEngine(jcfg, jp, JaxEngineConfig(prefill_chunk=0, **ec),
-                     _source(jprobs), seed=3)
-    outs["jax"] = _drain(jeng, JTASK)
+    if ring:
+        jprobs, _ = _prompts(lengths, seed=pseed)
+        jeng = JaxEngine(jcfg, jp, JaxEngineConfig(prefill_chunk=0, **ec),
+                         _source(jprobs), seed=seed)
+        outs["jax"] = _drain(jeng, JTASK)
+    else:
+        outs["jax"] = _jax_legacy("slots")[2]
     assert len(outs[0]) == len(lengths)
     _same(outs[0], outs["jax"])
     _same(outs[4], outs[0], atol=CHUNKED_ATOL)

@@ -42,6 +42,8 @@ print("NEW", "repro_torch.models.moe" in sys.modules, all(
     "repro_torch.configs." + m in sys.modules for m in (
         "hymba_1_5b", "granite_moe_1b", "qwen3_32b", "phi3_mini_3_8b",
         "phi3_vision_4_2b", "musicgen_medium")))
+print("A7", all(m in sys.modules for m in (
+    "repro_torch.core.serving", "repro_torch.core.evaluator")))
 print("BAD", bad)
 """
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)],
@@ -52,6 +54,7 @@ print("BAD", bad)
     assert n_loaded >= 30
     assert "SSM True True" in out.stdout, out.stdout
     assert "NEW True True" in out.stdout, out.stdout
+    assert "A7 True" in out.stdout, out.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -128,3 +131,23 @@ def test_orchestration_entry_points_default_to_the_card(monkeypatch):
     c = ConventionalRL(cfg, params, task, ec, ConventionalConfig(),
                        device="cpu")
     assert c.trainer.device.type == c.engine.device.type == "cpu"
+
+
+def test_server_and_evaluator_default_to_the_card(monkeypatch):
+    """The request Server and the Evaluator build their engines on the card
+    unless told otherwise, and raise without one."""
+    from repro_torch import Evaluator, Server
+    from repro_torch.data.math_task import MathTask
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    task = MathTask(max_operand=3, ops="+")
+    cfg = get_config("tiny")
+    params = TM.init_params(cfg, seed=0, device="cpu")
+    ec = EngineConfig(n_slots=2, max_len=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Server(cfg, params, ec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Evaluator(cfg, task, n_problems=2)
+    srv = Server(cfg, params, ec, device="cpu")
+    assert srv.device.type == srv.engine.device.type == "cpu"
+    ev = Evaluator(cfg, task, n_problems=2, max_len=8, device="cpu")
+    assert ev.evaluate(params)["n"] >= 2

@@ -1,6 +1,7 @@
-"""A dropped `PipelineRL` (or `ConventionalRL`) frees its device memory by
-reference counting: with the cyclic garbage collector disabled, its
-trainer's parameter tensors, Adam moments and engine caches die on `del`.
+"""A dropped `PipelineRL` (or `ConventionalRL`, or `Server`) frees its
+device memory by reference counting: with the cyclic garbage collector
+disabled, its trainer's parameter tensors, Adam moments and engine caches
+die on `del` — with a fault plan's events pending too.
 
 Ownership runs one way (`repro_torch/core/events.py`): the orchestrator
 holds the loop, the loop's heap the stages, the stages the engines and the
@@ -18,7 +19,8 @@ import numpy as np
 import pytest
 
 from repro_torch import (ConventionalConfig, ConventionalRL, EngineConfig,
-                         PipelineConfig, PipelineRL, Trainer)
+                         FaultPlan, PipelineConfig, PipelineRL, Server,
+                         Trainer)
 from repro_torch.configs import tiny as port_tiny
 from repro_torch.core.events import EventLoop, weak_method
 from repro_torch.core.weights import tree_flatten
@@ -58,24 +60,62 @@ def _tensors(trainer, engine, params):
     return [weakref.ref(t) for t in (param, moment, cache)]
 
 
-@pytest.mark.parametrize("resume", [False, True],
-                         ids=["two-steps", "max-lag-resumed"])
+def _faults():
+    """Every kind the pipeline schedules as an event, some still pending
+    when the run stops."""
+    return (FaultPlan(seed=1).engine_crash(10.0, engine=1,
+                                           restart_after=1e6)
+            .engine_hang(1e6, engine=0).trainer_crash(1e6, restart_after=1.0)
+            .preprocess_fail(1e6).nan_step(1e6)
+            .engine_slowdown(0.0, 1e6, engine=0).poison_prompt(3)
+            .degrade_link(0.0, 1e6, drop_prob=0.2))
+
+
+@pytest.mark.parametrize("resume", [False, True, "faults"],
+                         ids=["two-steps", "max-lag-resumed", "fault-plan"])
 def test_dropped_pipeline_frees_its_tensors(setup, no_gc, resume):
     task, cfg, params = setup
-    pc = dict(PC, n_opt_steps=2, max_lag=1 if resume else None)
+    pc = dict(PC, n_opt_steps=2, max_lag=1 if resume is True else None)
+    faults = resume == "faults"
+    if faults:
+        pc["n_engines"] = 2
     p = PipelineRL(cfg, params, task, EngineConfig(n_slots=8, max_len=20),
-                   PipelineConfig(**pc), **CPU)
+                   PipelineConfig(**pc), fault_plan=_faults() if faults
+                   else None, **CPU)
     log = p.run()
     assert len(log) == 2
-    if resume:
+    if resume is True:
         # pending events survive between runs while the pipeline lives
         assert len(p.loop) > 0
         assert len(p.run(3)) == 3
+    if faults:
+        assert len(p.loop) > 0 and p.fault_log
     refs = _tensors(p.trainer, p.engine, params)
     pipe = weakref.ref(p)
     del p, log
     assert pipe() is None
     assert [r() is None for r in refs] == [True, True, True]
+
+
+def test_dropped_server_frees_its_tensors(setup, no_gc):
+    """The Server's engine refers back to it only weakly (its prompt
+    source, rejection callback, delivery callback and cost closures)."""
+    task, cfg, params = setup
+    srv = Server(cfg, params, EngineConfig(n_slots=2, max_len=20,
+                                           cache="paged", page_size=4),
+                 deadline=8.0, max_retries=1, **CPU)
+    srv.connect_trainer(lambda: (params, 1))
+    for _ in range(4):
+        srv.submit(task.sample().prompt_ids)
+    for i in range(6):
+        if i == 2:
+            srv.request_weight_update(streamed=True, n_chunks=4)
+        srv.step()
+    assert srv.quarantine(next(iter(srv.in_flight)))
+    cache = weakref.ref(tree_flatten(srv.engine.state["cache"])[0][0])
+    ref = weakref.ref(srv)
+    del srv
+    assert ref() is None and cache() is None
 
 
 def test_dropped_conventional_frees_its_tensors(setup, no_gc):

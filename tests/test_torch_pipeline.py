@@ -9,6 +9,8 @@ Parity: both packages start from the same converted weights (tiny config,
 time), versions, lags, token counts and rewards must be equal; losses agree
 within 1e-4 relative (float32 sums in another order).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,17 +29,25 @@ from repro.models import model as JM
 from repro.optim.adam import AdamConfig as JaxAdamConfig
 from repro.sharding import tree_values
 from repro_torch import (AdamConfig, ConventionalConfig, ConventionalRL,
-                         EngineConfig, PipelineConfig, PipelineRL, RLConfig,
-                         Trainer)
+                         EngineConfig, FaultPlan, PipelineConfig, PipelineRL,
+                         RLConfig, Trainer)
 from repro_torch.configs import tiny as port_tiny
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.events import apply_group_baseline
 from repro_torch.data.math_task import MathTask
 from repro_torch.data.packing import Rollout
 from repro_torch.models import model as M
+from torch_twin import one_thread
 
 CPU = {"device": "cpu"}
 PC = dict(batch_size=4, n_chips=8, train_chips=4, pack_rows=2, pack_seq=48)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread for the module (`torch_twin.one_thread`)."""
+    with one_thread():
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -48,26 +58,35 @@ def setup():
     return task, cfg, M.init_params(cfg, 0, **CPU)
 
 
-def _run(setup, n_engines=1, **pc):
-    task, cfg, params = setup
+@functools.lru_cache(maxsize=None)
+def _runs(n_engines):
+    """One pipeline per pool size, run in stages to 4, 5, 6 and 8 optimizer
+    steps (a run is resumable: the first k steps of a longer run are the
+    k-step run); the tests below share it. Returns {steps: (log, engine
+    version after that many steps)}."""
+    task = MathTask(max_operand=5, ops="+")
+    cfg = port_tiny.config(vocab_size=task.tok.vocab_size, d_model=64,
+                           n_layers=1)
+    params = M.init_params(cfg, 0, **CPU)
     p = PipelineRL(cfg, params, task, EngineConfig(n_slots=8, max_len=20),
-                   PipelineConfig(**dict(PC, n_engines=n_engines, **pc)),
-                   **CPU)
-    return p, p.run()
+                   PipelineConfig(**dict(PC, n_engines=n_engines,
+                                         n_opt_steps=8)), **CPU)
+    return {n: (list(p.run(n)), p.engine.version) for n in (4, 5, 6, 8)}
 
 
 @pytest.mark.parametrize("n_engines", [1, 2])
-def test_pipeline_runs_and_logs(setup, n_engines):
-    p, log = _run(setup, n_engines, n_opt_steps=4)
+def test_pipeline_runs_and_logs(n_engines):
+    log, _ = _runs(n_engines)[4]
     assert len(log) == 4
     assert log[-1]["version"] == 4 and log[-1]["time"] > 0
     assert all("ess" in r for r in log)
 
 
 @pytest.mark.parametrize("n_engines", [1, 2])
-def test_pipeline_lag_bounded_and_mixed(setup, n_engines):
+def test_pipeline_lag_bounded_and_mixed(n_engines):
     """Fig. 3a: a stable, bounded max lag once warm, mixed-policy batches."""
-    p, log = _run(setup, n_engines, n_opt_steps=8)
+    log, _ = _runs(n_engines)[8]
+    assert len(log) == 8
     warm = log[3:]
     assert 0 < max(r["max_lag"] for r in warm) <= 8
     assert all(r["mean_lag"] <= r["max_lag"] for r in warm)
@@ -85,15 +104,15 @@ def test_conventional_lag_grows_with_g(setup):
         assert r["mean_lag"] == pytest.approx(i % 3)
 
 
-def test_pipeline_weight_updates_propagate(setup):
-    p, _ = _run(setup, n_opt_steps=6)
-    assert p.engine.version > 0
+def test_pipeline_weight_updates_propagate():
+    log, version = _runs(1)[6]
+    assert len(log) == 6 and version > 0
 
 
-def test_sim_clock_monotonic(setup):
-    _, log = _run(setup, n_opt_steps=5)
+def test_sim_clock_monotonic():
+    log, _ = _runs(1)[5]
     times = [r["time"] for r in log]
-    assert times == sorted(times)
+    assert len(times) == 5 and times == sorted(times)
 
 
 # ---------------------------------------------------------------------------
@@ -321,9 +340,12 @@ def test_learning_configuration_runs_in_both_packages(capsys):
 
 
 def test_pipeline_refuses_what_is_not_ported(setup):
+    """Mesh placement still raises, naming its queue; a fault plan builds."""
     task, cfg, params = setup
-    for kw in ({"fault_plan": object()}, {"mesh": object()},
-               {"rules": object()}):
+    for kw in ({"mesh": object()}, {"rules": object()}):
         with pytest.raises(NotImplementedError, match="A.7"):
             PipelineRL(cfg, params, task, EngineConfig(),
                        PipelineConfig(), **CPU, **kw)
+    p = PipelineRL(cfg, params, task, EngineConfig(), PipelineConfig(),
+                   fault_plan=FaultPlan(), **CPU)
+    assert p.fault_plan is not None and p.broadcaster.fault_plan is not None
