@@ -11,6 +11,7 @@ Run from the repository root:
     python3 chip_smoke.py --only build,kernels,pipeline
     python3 chip_smoke.py --only build,kernels,train --train-layers 2
     python3 chip_smoke.py --only build,kernels,serve --layers 2
+    python3 chip_smoke.py --only env,build,sharded,launch,dryrun
 
 Phases, one JSON line each, every line tagged with the GPU's name and power
 limit (`nvidia-smi --query-gpu=name,power.limit`):
@@ -228,6 +229,31 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
    time of each fault and recovery, checkpoint save and restore ms and
    bytes, the step times and peak memory.
 
+13. sharded: two gloo ranks on cuda:0 (NCCL refuses two ranks on one
+   card): the vocab-parallel fused loss (`kernels/sharded.py`) at
+   llama3-8b's head (N 4096, D 4096, V 128256, 64128 columns a rank) in
+   bfloat16, forward and backward, each rank launching the fused kernels
+   on its slice (counted per rank), its values and gradients against the
+   one-rank kernel path and the plain version (2e-2); granite-moe-1b-a400m's
+   MoE layer at its published widths (4096 tokens, 16 experts a rank)
+   expert-parallel against the unsharded port path (output 2e-2 of its
+   largest entry, the aux loss 1e-5, every routing decision equal); the
+   times of both, each rank's including the other's share of the card.
+14. launch: `repro_torch.launch.train.main` on the card, the tiny
+   pipeline for 4 steps with the fused loss, max_len 64 and the reference
+   KL: its step lines, the kernels it launched and how often, finite
+   rewards and losses, and which attention kernel (if any) no step
+   engaged.
+15. dryrun: the port's dry-run (`repro_torch.launch.dryrun`) on meta
+   DTensors over a fake 128-rank process group, on the host's CPU beside
+   the GPU phases (started first, collected last): granite-3-2b x
+   {train_4k, decode_32k} with the weight update whole and in 3 chunks,
+   deepseek-v3-671b x decode_32k (experts split over "model"),
+   `run_disaggregated("granite-3-2b")`, and a one-device trace of the
+   train phase's own step, whose FLOP count it prints beside that phase's
+   step median (the step's model-FLOP share). The roofline terms are
+   arithmetic on H100 data-sheet constants, not timings.
+
 The serve and pipeline profiles report the device ms and launches of the
 decode kernel in their profiled step (`kernels`).
 
@@ -259,7 +285,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("env", "build", "kernels", "serve", "train", "pipeline", "ssm",
-          "hybrid", "moe", "mla", "server", "faults")
+          "hybrid", "moe", "mla", "server", "faults", "dryrun", "sharded",
+          "launch")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores,
 # float32 outside the tensor cores, HBM3 bandwidth
@@ -3194,6 +3221,400 @@ def _faults_result(gpu, cfg, full, runs, scores, eval_launches,
     return _finish("faults", res, bad)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dry-run (meta DTensors on a fake process group; no device)
+# ---------------------------------------------------------------------------
+
+DRYRUN_COMBOS = (("granite-3-2b", "train_4k"), ("granite-3-2b", "decode_32k"),
+                 ("deepseek-v3-671b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 900
+
+
+def _dryrun_worker(out_path: str) -> int:
+    """`chip_smoke.py --dryrun-worker OUT`: the dry-run's records, one JSON
+    object per line: the combos on the (16, 8) mesh with the weight update
+    whole and in 3 chunks, the disaggregated split, and a one-device trace
+    of the train phase's own step (granite-3-2b, 4 x 1024, fused loss,
+    remat). It runs on the host's CPU and touches no device."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import run_disaggregated, run_one
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.roofline.analysis import model_flops_estimate
+
+    with open(out_path, "w") as f:
+        def put(rec):
+            if rec.get("ok"):
+                rec.pop("traceback", None)
+            f.write(json.dumps(rec, default=str) + "\n")
+            f.flush()
+
+        for arch, shape in DRYRUN_COMBOS:
+            put(dict(run_one(arch, shape, include_weight_update=True,
+                             wu_chunks=3), kind="combo"))
+        put(dict(run_disaggregated("granite-3-2b"), kind="disaggregated"))
+        fake_world(1)
+        mesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                          mesh_dim_names=("data", "model"))
+        cfg = dataclasses.replace(get_config("granite-3-2b"), fused_loss=True,
+                                  remat=True)
+        shape = ShapeSpec("train_phase", 1024, 4, "train")
+        t0 = time.time()
+        prog = steps.lower_program(cfg, shape, mesh)
+        put({"kind": "train_step", "ok": True, "flops": prog.flops,
+             "bytes": prog.bytes, "n_ops": prog.n_ops,
+             "model_flops": model_flops_estimate(cfg, shape),
+             "t_trace_s": time.time() - t0})
+    return 0
+
+
+def start_dryrun(out_path: str):
+    """Start the dry-run worker on the host's CPU; it runs beside the GPU
+    phases and `phase_dryrun` collects it."""
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    err = open(out_path + ".err", "w")
+    return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--dryrun-worker", out_path], env=env,
+                            stdout=subprocess.DEVNULL, stderr=err)
+
+
+def phase_dryrun(gpu: str, proc, out_path: str, train_res) -> dict:
+    """The dry-run's records: each combo's three roofline terms on H100
+    data-sheet constants (arithmetic, not timings), bottleneck, collective
+    bytes by kind and axis, trace time; the weight update whole and per
+    chunk; the disaggregated split; the one-device FLOP count of the train
+    phase's step beside that phase's measured step median."""
+    t0 = time.time()
+    try:
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SystemExit("dryrun: the worker did not finish in "
+                         f"{DRYRUN_TIMEOUT_S} s")
+    waited = time.time() - t0
+    recs = [json.loads(l) for l in Path(out_path).read_text().splitlines()
+            if l.strip()]
+    bad = [] if rc == 0 else [f"worker exit code {rc}: " + Path(
+        out_path + ".err").read_text()[-2000:]]
+    rows = []
+    for r in recs:
+        if not r.get("ok"):
+            bad.append(f"{r.get('arch')}/{r.get('shape', r['kind'])}: "
+                       f"{r.get('error')}")
+            continue
+        if r["kind"] == "combo":
+            ch = r["weight_update_chunks"]
+            rows.append({k: r[k] for k in (
+                "arch", "shape", "mesh", "t_compute_s", "t_memory_s",
+                "t_collective_s", "bottleneck", "traced_gflops_per_dev",
+                "traced_gbytes_per_dev", "coll_gbytes_per_dev",
+                "coll_breakdown", "coll_axis", "useful_flops_ratio",
+                "memory_analysis", "t_trace_s", "n_ops")})
+            rows[-1]["weight_update"] = {
+                "t_collective_s": r["weight_update"]["t_collective_s"],
+                "coll_breakdown": r["weight_update"]["coll_breakdown"],
+                "n_chunks": ch["n_chunks"],
+                "sum_t_collective_s": ch["sum_t_collective_s"],
+                "max_chunk_t_collective_s": ch["max_chunk_t_collective_s"]}
+        elif r["kind"] == "disaggregated":
+            rows.append({"disaggregated": r["arch"],
+                         "train_mesh": r["train_mesh"],
+                         "gen_mesh": r["gen_mesh"],
+                         "train": {k: r["train"][k] for k in (
+                             "t_compute_s", "t_memory_s", "t_collective_s",
+                             "bottleneck")},
+                         "serve": {k: r["serve"][k] for k in (
+                             "t_compute_s", "t_memory_s", "t_collective_s",
+                             "bottleneck")},
+                         "t_total_s": r["t_total_s"]})
+        else:
+            step = {k: r[k] for k in ("flops", "bytes", "model_flops",
+                                      "t_trace_s", "n_ops")}
+            if train_res:
+                med_s = train_res["step_ms_median"] / 1e3
+                peak = PEAK_FLOPS[torch.bfloat16]
+                step.update(
+                    train_step_ms_median=train_res["step_ms_median"],
+                    traced_flops_share=r["flops"] / (med_s * peak),
+                    model_flops_share=r["model_flops"] / (med_s * peak))
+            rows.append({"train_step_one_device": step})
+    if len(recs) != len(DRYRUN_COMBOS) + 2:
+        bad.append(f"{len(recs)} records, expected {len(DRYRUN_COMBOS) + 2}")
+    res = {"phase": "dryrun", "gpu": gpu, "records": rows,
+           "waited_s": waited,
+           "note": "terms are arithmetic on H100 SXM data-sheet constants "
+                   "(989e12 bf16 FLOP/s, 3.35e12 B/s HBM3, 450e9 B/s NVLink "
+                   "on 'model', 50e9 B/s on 'data'/'pod'), not timings"}
+    return _finish("dryrun", res, bad)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the vocab-parallel loss and expert-parallel MoE, two gloo ranks
+# on cuda:0
+# ---------------------------------------------------------------------------
+
+SHARDED_LOSS = dict(N=4096, D=4096, V=128256)    # llama3-8b's head
+SHARDED_TOKENS = (4, 1024)                       # the MoE layer's tokens
+
+
+def _events_ms(fn, iters: int, device: str = "cuda") -> float:
+    """Median wall ms of fn() between synchronizations (two ranks share
+    the card, so each rank's time includes the other's overlap)."""
+    out = []
+    for _ in range(iters):
+        _sync(torch.device(device))
+        t0 = time.perf_counter()
+        fn()
+        _sync(torch.device(device))
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def _sharded_rank(rank: int, port: int, out_dir: str, device: str,
+                  loss_shape: dict, tokens: tuple) -> None:
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.sharded import fused_logprob_sharded
+    from repro_torch.models import moe as TMoE
+    from repro_torch.shardctx import sharding_context
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    res: dict = {"rank": rank}
+    try:
+        mesh = DeviceMesh(device, torch.arange(2), mesh_dim_names=("model",))
+        N, D, V = (loss_shape[k] for k in ("N", "D", "V"))
+        vl = V // 2
+        gen = torch.Generator(device=device).manual_seed(11)
+        h = torch.randn((N, D), generator=gen, device=device).bfloat16()
+        w = (torch.randn((D, V), generator=gen, device=device)
+             * D ** -0.5).bfloat16()
+        t = torch.randint(0, V, (N,), generator=gen, device=device)
+        g = torch.randn((3, N), generator=gen, device=device)
+        cols = slice(rank * vl, (rank + 1) * vl)
+
+        def sharded():
+            hl = h.clone().requires_grad_(True)
+            wl = w[:, cols].contiguous().requires_grad_(True)
+            hd = DTensor.from_local(hl, mesh, [Replicate()], run_check=False)
+            wd = DTensor.from_local(wl, mesh, [Shard(1)], run_check=False)
+            td = DTensor.from_local(t, mesh, [Replicate()], run_check=False)
+            out = fused_logprob_sharded(hd, wd, td, mesh=mesh)
+            vals = [o.to_local() for o in out]
+            torch.autograd.backward(vals, list(g))
+            return [v.detach() for v in vals], hl.grad, wl.grad
+
+        def one_rank():
+            hl = h.clone().requires_grad_(True)
+            wl = w.clone().requires_grad_(True)
+            vals = ops.fused_logprob(hl, wl, t)
+            torch.autograd.backward(vals, list(g))
+            return [v.detach() for v in vals], hl.grad, wl.grad[:, cols]
+
+        ops.reset_launches()
+        vals, dh, dw = sharded()
+        _sync(torch.device(device))
+        res["launches"] = dict(ops.launches)
+        v1, dh1, dw1 = one_rank()
+        pv = ref.fused_logprob_blocked(h, w, t)
+        pdh, pdw = ref.blocked_backward(h, w, t, pv[1], pv[2], *g,
+                                        transpose_head=False)
+        pdw = pdw[:, cols]
+
+        def err(a, b):
+            return float((a.float() - b.float()).abs().max())
+
+        def rel(a, b):
+            return err(a, b) / max(float(b.float().abs().max()), 1e-30)
+
+        res["loss"] = {
+            "shape": dict(N=N, D=D, V=V, per_rank=vl), "dtype": "bfloat16",
+            "vs_one_rank": {"values_max_abs": max(err(a, b) for a, b in
+                                                  zip(vals, v1)),
+                            "dh_rel": rel(dh, dh1), "dw_rel": rel(dw, dw1)},
+            "vs_plain": {"values_max_abs": max(err(a, b) for a, b in
+                                               zip(vals, pv)),
+                         "dh_rel": rel(dh, pdh), "dw_rel": rel(dw, pdw)},
+            "finite": all(bool(torch.isfinite(x).all())
+                          for x in (*vals, dh, dw)),
+            "sharded_ms": _events_ms(sharded, 3, device),
+            "one_rank_ms": _events_ms(one_rank, 3, device)}
+        del w, pv, pdh, pdw, dw1, v1, dh1
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        cfg = get_config("granite-moe-1b-a400m")
+        d, E, Fd = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+        gen = torch.Generator(device=device).manual_seed(12)
+        wts = {"router": torch.randn((d, E), generator=gen, device=device)
+               * d ** -0.5}
+        for k, shp in (("gate", (E, d, Fd)), ("up", (E, d, Fd)),
+                       ("down", (E, Fd, d))):
+            wts[k] = (torch.randn(shp, generator=gen, device=device)
+                      * shp[1] ** -0.5).bfloat16()
+        x = torch.randn(tuple(tokens) + (d,), generator=gen,
+                        device=device).bfloat16()
+
+        def ep():
+            dwts = {k: DTensor.from_local(v, mesh, [Replicate()],
+                                          run_check=False)
+                    for k, v in wts.items()}
+            dx = DTensor.from_local(x, mesh, [Replicate()], run_check=False)
+            with torch.no_grad(), sharding_context(mesh):
+                o, a = TMoE.moe_apply(dwts, dx, cfg)
+            return o.to_local(), a.to_local()
+
+        def single():
+            with torch.no_grad():
+                return TMoE.moe_apply(wts, x, cfg)
+
+        o, a = ep()
+        o1, a1 = single()
+        T = x.shape[0] * x.shape[1]
+        C = TMoE._capacity(T, cfg)
+        probs = torch.softmax(x.reshape(T, d).float() @ wts["router"], -1)
+        d_ep, _ = TMoE.route(probs, cfg, C, E // 2, rank * (E // 2))
+        d_all, _ = TMoE.route(probs, cfg, C, E, 0)
+        same = True
+        for de, da in zip(d_ep, d_all):
+            mine = (da != E * C) & (da // C >= rank * (E // 2)) & \
+                (da // C < (rank + 1) * (E // 2))
+            same &= bool(torch.equal(de[mine], da[mine] - rank * (E // 2) * C))
+            same &= bool((de[~mine] == (E // 2) * C).all())
+        res["moe"] = {"shape": dict(T=T, d=d, E=E, k=cfg.experts_per_token,
+                                    d_ff=Fd, capacity=C, per_rank=E // 2),
+                      "dtype": "bfloat16",
+                      "out_rel": rel(o, o1), "aux_abs": err(a, a1),
+                      "decisions_equal": same,
+                      "finite": bool(torch.isfinite(o.float()).all()),
+                      "ep_ms": _events_ms(ep, 3, device),
+                      "single_ms": _events_ms(single, 3, device)}
+    except Exception as e:  # reported by the parent, which fails the phase
+        res["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump(res, f)
+        dist.destroy_process_group()
+
+
+def phase_sharded(gpu: str, device="cuda", loss_shape=SHARDED_LOSS,
+                  tokens=SHARDED_TOKENS) -> dict:
+    """Two gloo ranks on cuda:0 (NCCL refuses two ranks on one card): the
+    vocab-parallel fused loss at llama3-8b's head in bfloat16, forward and
+    backward, each rank launching the fused kernels on its 64128 vocab
+    columns, held against the one-rank kernel path and the plain version
+    (2e-2); granite-moe-1b-a400m's MoE layer at its published widths,
+    expert-parallel over the two ranks, against the unsharded port path.
+    A CPU run (`device="cpu"`, smaller shapes) rehearses the phase's logic
+    and measures nothing."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    out_dir = tempfile.mkdtemp(prefix="sharded_")
+    t0 = time.time()
+    mp.spawn(_sharded_rank, args=(port, out_dir, device, dict(loss_shape),
+                                  tuple(tokens)), nprocs=2, join=True)
+    ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+             for r in range(2)]
+    bad = []
+    for r in ranks:
+        if "error" in r:
+            bad.append(f"rank {r['rank']}: {r['error']}")
+            continue
+        ls, mo = r["loss"], r["moe"]
+        for k in ("fused_logprob_fwd", "fused_logprob_bwd"):
+            if device == "cuda" and r["launches"].get(k, 0) < 1:
+                bad.append(f"rank {r['rank']} launched no {k}")
+        for ref_name in ("vs_one_rank", "vs_plain"):
+            e = ls[ref_name]
+            if not (e["values_max_abs"] <= 2e-2 and e["dh_rel"] <= 2e-2
+                    and e["dw_rel"] <= 2e-2):
+                bad.append(f"rank {r['rank']} loss {ref_name}: {e}")
+        if not ls["finite"] or not mo["finite"]:
+            bad.append(f"rank {r['rank']}: non-finite output")
+        if not (mo["out_rel"] <= 2e-2 and mo["aux_abs"] <= 1e-5
+                and mo["decisions_equal"]):
+            bad.append(f"rank {r['rank']} moe: out_rel {mo['out_rel']}, "
+                       f"aux {mo['aux_abs']}, decisions "
+                       f"{mo['decisions_equal']}")
+    res = {"phase": "sharded", "gpu": gpu, "ranks": ranks,
+           "wall_s": time.time() - t0,
+           "launches": ranks[0].get("launches", {}),
+           "launches_per_rank": [r.get("launches") for r in ranks]}
+    return _finish("sharded", res, bad)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the launch CLI on the card
+# ---------------------------------------------------------------------------
+
+LAUNCH_ARGS = ["--steps", "4", "--fused-loss", "--max-len", "64",
+               "--kl-coef", "0.05"]
+
+
+def phase_launch(gpu: str, device="cuda") -> dict:
+    """`repro_torch.launch.train.main` on the card: the tiny pipeline for 4
+    steps with the fused loss, max_len 64 and the reference KL. Its step
+    lines, the kernels it launched and how often, finite rewards and
+    losses."""
+    import io
+    import math
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as TT
+
+    log = Path(tempfile.mkdtemp(prefix="launch_")) / "log.json"
+    buf = io.StringIO()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        TT.main(LAUNCH_ARGS + ["--log-out", str(log), "--device", device])
+    _sync(torch.device(device))
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    lines = [l for l in buf.getvalue().splitlines() if l]
+    steps = [l for l in lines if l.startswith("step ")]
+    recs = json.loads(log.read_text())
+    bad = []
+    if len(steps) != 4 or len(recs) != 4:
+        bad.append(f"{len(steps)} step lines, {len(recs)} log records")
+    if not all(math.isfinite(r["reward"]) and math.isfinite(r["loss"])
+               for r in recs):
+        bad.append("a non-finite reward or loss")
+    for k in ("fused_logprob_fwd", "fused_logprob_bwd"):
+        if device == "cuda" and launches.get(k, 0) < 1:
+            bad.append(f"no {k} launch")
+    idle = [k for k in ("flash_decode", "prefill_attention",
+                        "flash_attention") if not launches.get(k)]
+    res = {"phase": "launch", "gpu": gpu, "argv": LAUNCH_ARGS,
+           "lines": lines, "launches": launches, "wall_s": wall,
+           "attention_kernels_not_engaged": idle}
+    return _finish("launch", res, bad)
+
+
 def summary(kernels: list, paths: dict, gpu: str) -> list:
     """One entry per kernel: its case at the main path's shapes in bfloat16
     and its launches on the path that runs it (the serve phase for the slot
@@ -3245,6 +3666,9 @@ def release_memory(after: str, gpu: str) -> None:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--dryrun-worker"]:
+        return _dryrun_worker(argv[1])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated phases to run")
@@ -3282,6 +3706,23 @@ def main(argv=None) -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     gpu = nvidia_smi("name,power.limit")
+    dry = None
+    if "dryrun" in phases:
+        # the dry-run needs no device: it runs on the host beside the GPU
+        # phases and is collected after them
+        import tempfile
+        dry_out = str(Path(tempfile.mkdtemp(prefix="dryrun_")) / "dry.jsonl")
+        dry = start_dryrun(dry_out)
+    try:
+        return _run_phases(args, phases, gpu, dry,
+                           dry_out if dry is not None else None)
+    finally:
+        if dry is not None and dry.poll() is None:
+            dry.kill()
+            dry.wait()
+
+
+def _run_phases(args, phases, gpu, dry, dry_out) -> int:
     kernels, paths = [], {}
     if "env" in phases:
         phase_env(gpu)
@@ -3321,6 +3762,14 @@ def main(argv=None) -> int:
     if "faults" in phases:
         paths["faults"] = phase_faults(gpu, args.faults_layers)
         release_memory("faults", gpu)
+    if "sharded" in phases:
+        paths["sharded"] = phase_sharded(gpu)
+        release_memory("sharded", gpu)
+    if "launch" in phases:
+        paths["launch"] = phase_launch(gpu)
+        release_memory("launch", gpu)
+    if dry is not None:
+        phase_dryrun(gpu, dry, dry_out, paths.get("train"))
 
     emit({"kernels": summary(kernels, paths, gpu)})
     print(gpu, flush=True)

@@ -2,11 +2,16 @@
 config of the JAX package, and the tiny config of the main path."""
 from __future__ import annotations
 
+from typing import Dict
+
 from repro_torch.configs import (deepseek_v3_671b, granite_3_2b,
                                  granite_moe_1b, hymba_1_5b, llama3_8b,
                                  mamba2_2_7b, musicgen_medium, phi3_mini_3_8b,
                                  phi3_vision_4_2b, qwen3_32b, tiny)
-from repro_torch.configs.base import ModelConfig, effective_cache_len, kv_cache_specs
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeSpec,
+                                     effective_cache_len, for_shape,
+                                     input_specs, kv_cache_specs,
+                                     smoke_config)
 
 _MODULES = {
     "tiny": tiny,
@@ -31,5 +36,12 @@ def get_config(arch: str) -> ModelConfig:
     return _MODULES[arch].config()
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "effective_cache_len", "get_config",
-           "kv_cache_specs"]
+def all_configs() -> Dict[str, ModelConfig]:
+    """Every config of the JAX package's registry (the tiny config of the
+    main path is left out, as that registry has none)."""
+    return {k: get_config(k) for k in ARCH_IDS if k != "tiny"}
+
+
+__all__ = ["ARCH_IDS", "SHAPES", "ModelConfig", "ShapeSpec", "all_configs",
+           "effective_cache_len", "for_shape", "get_config", "input_specs",
+           "kv_cache_specs", "smoke_config"]

@@ -14,7 +14,7 @@ exactly when `arch_type` is "hybrid").
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -97,6 +97,12 @@ class ModelConfig:
     @property
     def has_ssm(self) -> bool:
         return self.arch_type in ("ssm", "hybrid")
+
+    @property
+    def supports_long_decode(self) -> bool:
+        """Every arch supports long_500k: SSM/hybrid natively (O(1) state);
+        attention archs via the sliding-window ring-buffer cache."""
+        return True
 
     def param_count(self, active_only: bool = False) -> int:
         """Parameters of the embedding, the head and the layers (the JAX
@@ -212,6 +218,135 @@ def paged_cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
                                                   cache_len).items()
                   if k in ("conv", "ssd")})
     return s
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def for_shape(cfg: ModelConfig, shape: ShapeSpec) -> ModelConfig:
+    """Specialize a config for an input shape (attention variant for 500k)."""
+    if shape.name == "long_500k" and cfg.has_attention and not cfg.use_mla:
+        return dataclasses.replace(cfg, attention_variant="sliding_window")
+    return cfg
+
+
+def _meta(shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """Meta-tensor stand-ins for every model input of a step function (no
+    storage is allocated):
+
+    train  -> RL train batch (tokens, mask, behavior logprobs, rewards, ...)
+    prefill-> prompt tokens
+    decode -> one-token step against a KV cache of shape.seq_len
+    """
+    B, S = shape.global_batch, shape.seq_len
+    i32, f32 = torch.int32, torch.float32
+    specs: Dict[str, Any]
+    if shape.kind == "train":
+        # matches repro_torch.data.packing.pack output
+        specs = {
+            "tokens": _meta((B, S), i32),
+            "loss_mask": _meta((B, S), f32),
+            "behavior_logprobs": _meta((B, S), f32),
+            "rewards": _meta((B, S), f32),
+            "positions": _meta((B, S), i32),
+            "segment_ids": _meta((B, S), i32),
+        }
+    elif shape.kind == "prefill":
+        specs = {"tokens": _meta((B, S), i32), "positions": _meta((B, S), i32)}
+    else:  # decode: one new token, cache of length seq_len
+        specs = {
+            "tokens": _meta((B, 1), i32),
+            "positions": _meta((B, 1), i32),
+            "cache": {k: _meta(*v) for k, v in kv_cache_specs(cfg, B, S).items()},
+            "cache_index": _meta((), i32),
+        }
+    if cfg.modality in ("vision", "audio") and cfg.n_prefix_tokens:
+        # stubbed frontend: precomputed patch/frame embeddings
+        specs["prefix_embeds"] = _meta((B, cfg.n_prefix_tokens, cfg.d_model),
+                                       cfg.dtype)
+    return specs
+
+
+CACHE_LOGICAL = {
+    "k": ("layers", "batch", "cache_seq", "kv_heads", None),
+    "v": ("layers", "batch", "cache_seq", "kv_heads", None),
+    "c_kv": ("layers", "batch", "cache_seq", None),
+    "k_rope": ("layers", "batch", "cache_seq", None),
+    "conv": ("layers", "batch", None, "mlp"),
+    "ssd": ("layers", "batch", "heads", None, None),
+}
+
+
+def input_logical(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """Logical axis names for every input spec (same keys as input_specs)."""
+    two = ("batch", "seq")
+    if shape.kind == "train":
+        log: Dict[str, Any] = {k: two for k in (
+            "tokens", "loss_mask", "behavior_logprobs", "rewards",
+            "positions", "segment_ids")}
+    elif shape.kind == "prefill":
+        log = {"tokens": two, "positions": two}
+    else:
+        log = {
+            "tokens": ("batch", None),
+            "positions": ("batch", None),
+            "cache": {k: CACHE_LOGICAL[k] for k in kv_cache_specs(cfg, 1, 8)},
+            "cache_index": (),
+        }
+    if cfg.modality in ("vision", "audio") and cfg.n_prefix_tokens:
+        log["prefix_embeds"] = ("batch", None, None)
+    return log
+
+
+def smoke_config(cfg: ModelConfig) -> ModelConfig:
+    """Reduced same-family variant: 2 layers, d_model<=512, <=4 experts."""
+    d = min(cfg.d_model, 256)
+    n_heads = min(cfg.n_heads, 4)
+    n_kv = max(1, min(cfg.n_kv_heads, n_heads))
+    if n_heads % n_kv:
+        n_kv = 1
+    repl: Dict[str, Any] = dict(
+        n_layers=2,
+        d_model=d,
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        d_head=32,
+        d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
+        vocab_size=min(cfg.vocab_size, 512),
+        sliding_window=64,
+        ssm_head_dim=32 if cfg.has_ssm else cfg.ssm_head_dim,
+        ssm_state=min(cfg.ssm_state, 16) if cfg.has_ssm else 0,
+        ssm_chunk=16 if cfg.has_ssm else cfg.ssm_chunk,
+        dtype=torch.float32,
+    )
+    if cfg.use_mla:
+        repl.update(q_lora_rank=64, kv_lora_rank=32, qk_nope_dim=32,
+                    qk_rope_dim=16, v_head_dim=32)
+    if cfg.n_experts:
+        repl.update(n_experts=min(cfg.n_experts, 4),
+                    experts_per_token=min(cfg.experts_per_token, 2),
+                    moe_d_ff=64, n_dense_layers=min(cfg.n_dense_layers, 1),
+                    dense_d_ff=128 if cfg.dense_d_ff else 0)
+    if cfg.n_prefix_tokens:
+        repl.update(n_prefix_tokens=8)
+    return dataclasses.replace(cfg, **repl)
 
 
 @dataclasses.dataclass(frozen=True)

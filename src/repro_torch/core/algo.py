@@ -22,7 +22,9 @@ import dataclasses
 from typing import Dict, Tuple
 
 import torch
-import torch.nn.functional as F
+
+from repro_torch.models.layers import pad_before
+from repro_torch.shardctx import gather_last
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,8 +50,8 @@ def token_logprobs(logits, tokens):
     per-token logprob of the sampled token, aligned with `tokens`
     (position 0 gets 0)."""
     lp = torch.log_softmax(logits.float(), dim=-1)
-    lp_next = lp[:, :-1].gather(-1, tokens[:, 1:, None].long())[..., 0]
-    return F.pad(lp_next, (1, 0))
+    lp_next = gather_last(lp[:, :-1], tokens[:, 1:, None].long())[..., 0]
+    return pad_before(lp_next, 1, 1)
 
 
 def token_stats_from_logits(logits, tokens):
@@ -58,14 +60,14 @@ def token_stats_from_logits(logits, tokens):
     (B,S) float32 aligned like `token_logprobs`."""
     l32 = logits.float()
     lse = torch.logsumexp(l32, dim=-1)                          # (B,S)
-    tgt_l = l32[:, :-1].gather(-1, tokens[:, 1:, None].long())[..., 0]
+    tgt_l = gather_last(l32[:, :-1], tokens[:, 1:, None].long())[..., 0]
     p = torch.exp(l32 - lse[..., None])
     ent = lse - torch.sum(p * l32, dim=-1)
 
     def shift(x):
-        return F.pad(x[:, :-1], (1, 0))
+        return pad_before(x[:, :-1], 1, 1)
 
-    return {"token_logprobs": F.pad(tgt_l - lse[:, :-1], (1, 0)),
+    return {"token_logprobs": pad_before(tgt_l - lse[:, :-1], 1, 1),
             "lse": shift(lse), "entropy": shift(ent)}
 
 

@@ -1,7 +1,10 @@
 """The kernels' wrappers: the only entry points the model layer calls.
 
 Each wrapper dispatches on the device of its inputs. On CPU tensors it runs
-the kernel's plain PyTorch version from `kernels/ref.py`. On CUDA tensors it
+the kernel's plain PyTorch version from `kernels/ref.py`; meta tensors (the
+dry-run's trace, where nothing runs) take the same plain version's shapes;
+a DTensor raises (`shardctx.local_call` hands a wrapper its local shards).
+On CUDA tensors it
 checks device, dtype, shape and strides, allocates the output with
 `torch.empty`, launches its hand-written CUDA kernel on the current stream
 and raises if the launch fails; there is no fallback. `launches[name]`
@@ -319,6 +322,20 @@ def _check(name: str, tensors: Dict[str, torch.Tensor], rows: Optional[int],
     return code
 
 
+def _plain(*tensors: torch.Tensor) -> bool:
+    """True where the wrapper runs its plain version: on the CPU, and on
+    meta tensors (the dry-run's trace: nothing runs, so a meta tensor takes
+    the plain version's shapes and work). A DTensor raises: a kernel
+    takes local shards (`shardctx.local_call`), never a distributed
+    tensor."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError("a kernel wrapper takes local tensors, not DTensors "
+                        "(call it through shardctx.local_call)")
+    return tensors[0].device.type in ("cpu", "meta")
+
+
 def _forward_only(name: str, *tensors: torch.Tensor) -> None:
     """The attention kernels and `ssd_scan` have no backward: a
     differentiated call would return an output with no autograd history and
@@ -413,7 +430,7 @@ def flash_decode(q, k_cache, v_cache, lengths, *, scale: float):
     """One-token decode attention. q: (B,H,Dk); caches: (B,CL,KV,D) (a
     layer slice of the engine cache, read in place); lengths: (B,) valid
     slots per row (CL for a full ring). Returns (B,H,Dv) in q's dtype."""
-    if q.device.type == "cpu":
+    if _plain(q, k_cache, v_cache, lengths):
         return ref.flash_decode_ref(q, k_cache, v_cache, lengths, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
@@ -438,7 +455,7 @@ def flash_decode_paged(q, k_pool, v_pool, block_tables, lengths, *,
     b at page block_tables[b, p // PS], offset p % PS; lengths: (B,) valid
     logical positions per row. Returns (B,H,Dv) in q's dtype, equal bit for
     bit to `flash_decode` on the gathered (B, NB*PS, KV, D) view."""
-    if q.device.type == "cpu":
+    if _plain(q, k_pool, v_pool, block_tables, lengths):
         return ref.flash_decode_paged_ref(q, k_pool, v_pool, block_tables,
                                           lengths, scale=scale)
     if q.device.type != "cuda":
@@ -474,7 +491,7 @@ def prefill_attention(q, k_chunk, v_chunk, k_cache, v_cache, offset: int, *,
     rope, Dv = r; past 256 the kernel's wide instance takes it (Dk up to
     576, Dv up to 512, `_prefill_geometry`)."""
     offset = int(offset)
-    if q.device.type == "cpu":
+    if _plain(q, k_chunk, v_chunk, k_cache, v_cache):
         return ref.prefill_attention_ref(q, k_chunk, v_chunk, k_cache,
                                          v_cache, offset, scale=scale)
     if q.device.type != "cuda":
@@ -524,7 +541,7 @@ def flash_attention(q, k, v, *, scale: float, window: int = 0):
     """Full-sequence causal GQA attention. q: (B,H,S,Dk); k,v:
     (B,KV,S,Dk/Dv) with GQA via h // rep; `window > 0` adds the
     sliding-window mask i - j < window. Returns (B,H,S,Dv). Any S."""
-    if q.device.type == "cpu":
+    if _plain(q, k, v):
         return ref.flash_attention_ref(q, k, v, scale=scale, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
@@ -792,7 +809,7 @@ def fused_logprob(hidden, head, targets, *, transpose_head: bool = False,
     recomputes each vocab chunk's softmax from the saved lse, so neither
     the (N, V) logits nor their gradient is ever stored whole. dw_chunks > 1
     sums the head gradient as per-row-range float32 partials."""
-    if hidden.device.type == "cpu":
+    if _plain(hidden, head, targets):
         return ref.fused_logprob_blocked(hidden, head, targets,
                                          transpose_head=transpose_head,
                                          dw_chunks=dw_chunks)
@@ -938,7 +955,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64):
     equal to `ref.ssd_scan_ref` to the dtype's tolerance, not bitwise."""
     chunk = int(chunk)
     _ssd_check(x, dt, A, B, C, chunk)
-    if x.device.type == "cpu":
+    if _plain(x, dt, A, B, C):
         return ref.ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {x.device}")

@@ -24,6 +24,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.shardctx import (constrain, is_distributed, local_call,
+                                  merge_dims, merge_last, split_last)
 
 NEG_INF = -1e30
 
@@ -92,6 +94,19 @@ def blocked_causal_attention(q, k, v, *, scale: float, segment_ids=None,
     return out.to(q.dtype)
 
 
+def _local_blocked(q, k, v, scale: float, segment_ids, window: int = 0):
+    """`blocked_causal_attention` on each rank's batch rows and heads under
+    a mesh (attention mixes neither), else on the whole tensors."""
+    if segment_ids is None:
+        return local_call(blocked_causal_attention, (q, k, v),
+                          ((0, 2),) * 3, ((0, 2),), scale=scale,
+                          window=window)
+    return local_call(
+        lambda q, k, v, seg: blocked_causal_attention(
+            q, k, v, scale=scale, segment_ids=seg, window=window),
+        (q, k, v, segment_ids), ((0, 2),) * 3 + ((0, None),), ((0, 2),))
+
+
 def _naive_causal_attention(q, k, v, *, scale: float, segment_ids=None,
                             window: int = 0):
     """Full (S, S) scores: the JAX package's `_naive_causal_attention`."""
@@ -118,10 +133,8 @@ def _project(p: Dict[str, torch.Tensor], x: torch.Tensor, positions,
              cfg: ModelConfig):
     """q (B,S,H,Dh), k and v (B,S,KV,Dh), normed and rotated. The (d,H,Dh)
     weights are used through (d, H*Dh) views."""
-    B, S, d = x.shape
-
     def proj(w):
-        return (x @ w.reshape(d, -1)).view(B, S, w.shape[1], w.shape[2])
+        return split_last(x @ merge_dims(w, 1), w.shape[1], w.shape[2])
 
     q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
     if cfg.use_qk_norm:
@@ -135,7 +148,7 @@ def _project(p: Dict[str, torch.Tensor], x: torch.Tensor, positions,
 def _out_proj(p, y: torch.Tensor) -> torch.Tensor:
     """y: (..., H, Dh) -> (..., d) through the (H*Dh, d) view of wo."""
     wo = p["wo"]
-    return y.reshape(*y.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
+    return merge_last(y) @ merge_dims(wo, 0)
 
 
 def _scale(cfg: ModelConfig) -> float:
@@ -150,15 +163,17 @@ def gqa_forward(p, x, positions, cfg: ModelConfig, segment_ids=None,
     `_use_flash_kernel` does; packed batches take the plain blocked path.
     Returns y, or (y, (k, v)) with k, v (B,S,KV,Dh)."""
     q, k, v = _project(p, x, positions, cfg)
+    q = constrain(q, ("batch", "seq", "heads", None))
+    k = constrain(k, ("batch", "seq", "kv_heads", None))
     window = (cfg.sliding_window
               if cfg.attention_variant == "sliding_window" else 0)
     if segment_ids is None:
-        out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                   v.transpose(1, 2), scale=_scale(cfg),
-                                   window=window).transpose(1, 2)
+        out = local_call(kops.flash_attention,
+                         (q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2)), ((0, 1),) * 3, ((0, 1),),
+                         scale=_scale(cfg), window=window).transpose(1, 2)
     else:
-        out = blocked_causal_attention(q, k, v, scale=_scale(cfg),
-                                       segment_ids=segment_ids, window=window)
+        out = _local_blocked(q, k, v, _scale(cfg), segment_ids, window)
     y = _out_proj(p, out)
     if return_kv:
         return y, (k, v)
@@ -171,9 +186,44 @@ def write_cache(cache: torch.Tensor, new: torch.Tensor,
     slot index % CL of each row, in place; `index` is (B,) (or a scalar
     tensor for lockstep decode). Equal bit for bit to the JAX package's
     one-hot blend, since x*1 + y*0 == x for finite values."""
+    if is_distributed(cache):
+        return _write_cache_shard(cache, new, index)
     CL = cache.shape[1]
     rows = torch.arange(cache.shape[0], device=cache.device)
     cache[rows, torch.remainder(index, CL)] = new[:, 0].to(cache.dtype)
+
+
+def _write_cache_shard(cache, new, index) -> None:
+    """`write_cache` into this rank's shard of a distributed cache (batch
+    rows and ring positions may both be split): the rows it holds write
+    the positions it holds, in place, and leave the rest to their
+    owners."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh = cache.device_mesh
+    _, off = compute_local_shape_and_global_offset(
+        cache.shape, mesh, cache.placements)
+    local = cache.to_local()
+    Bl, CLl = local.shape[:2]
+    rep = [Replicate()] * mesh.ndim
+
+    def whole(t):
+        return t.redistribute(mesh, rep).to_local() if is_distributed(t) \
+            else t
+
+    idx = whole(index)
+    idx = idx.expand(cache.shape[0]) if idx.dim() == 0 else idx
+    idx = idx[off[0]:off[0] + Bl]
+    pos = torch.remainder(idx, cache.shape[1]) - off[1]
+    mine = (pos >= 0) & (pos < CLl)
+    pos = pos.clamp(0, CLl - 1)
+    rows = torch.arange(Bl, device=local.device)
+    val = whole(new)[off[0]:off[0] + Bl, 0].to(local.dtype)
+    keep = local[rows, pos]
+    mask = mine.reshape((-1,) + (1,) * (val.dim() - 1))
+    local[rows, pos] = torch.where(mask, val, keep)
 
 
 def gqa_decode(p, x, positions, cache_k, cache_v, cache_index,
@@ -202,8 +252,9 @@ def gqa_decode(p, x, positions, cache_k, cache_v, cache_index,
         # clamp to CL: once a ring cache has wrapped every slot is valid
         lengths = torch.clamp(cache_index + 1, max=CL).to(torch.int32)
     if block_tables is None:
-        y = kops.flash_decode(q[:, 0], cache_k, cache_v, lengths,
-                              scale=_scale(cfg))
+        y = local_call(kops.flash_decode, (q[:, 0], cache_k, cache_v, lengths),
+                       ((0, 1), (0, 2), (0, 2), (0, None)), ((0, 1),),
+                       scale=_scale(cfg))
     elif paged_kernel:
         y = kops.flash_decode_paged(q[:, 0], cache_k, cache_v, block_tables,
                                     lengths, scale=_scale(cfg))
@@ -246,8 +297,9 @@ def gqa_prefill_chunk(p, x, positions, cache_k, cache_v, offset: int,
     else:
         view_k = paged_gather(cache_k, block_tables)
         view_v = paged_gather(cache_v, block_tables)
-    y = kops.prefill_attention(q, k, v, view_k, view_v, offset,
-                               scale=_scale(cfg))
+    y = local_call(kops.prefill_attention, (q, k, v, view_k, view_v),
+                   ((0, 2),) * 5, ((0, 2),), offset=offset,
+                   scale=_scale(cfg))
     off_w = offset % view_k.shape[1]
     if block_tables is None:
         write_cache_chunk(cache_k, k, off_w, write_mask)
@@ -314,11 +366,10 @@ def write_cache_chunk_paged(pool, new, offset: int, write_mask,
 
 def _mla_q(p, x, positions, cfg: ModelConfig):
     """q_nope (B,S,H,nope) and the rotated q_rope (B,S,H,rope)."""
-    B, S, _ = x.shape
     q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
     wq_b = p["wq_b"]
-    q = (q @ wq_b.reshape(wq_b.shape[0], -1)).view(B, S, wq_b.shape[1],
-                                                    wq_b.shape[2])
+    q = split_last(q @ merge_dims(wq_b, 1), wq_b.shape[1],
+                   wq_b.shape[2])
     nope = cfg.qk_nope_dim
     return q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
 
@@ -333,8 +384,7 @@ def _mla_kv(p, x, positions, cfg: ModelConfig):
 
 def _latent_heads(c_kv, w):
     """c_kv (B,S,r) through a (r,H,k) up-projection: (B,S,H,k)."""
-    B, S, r = c_kv.shape
-    return (c_kv @ w.reshape(r, -1)).view(B, S, w.shape[1], w.shape[2])
+    return split_last(c_kv @ merge_dims(w, 1), w.shape[1], w.shape[2])
 
 
 def _mla_scale(cfg: ModelConfig) -> float:
@@ -354,11 +404,12 @@ def mla_forward(p, x, positions, cfg: ModelConfig, segment_ids=None,
     c_kv, k_rope = _mla_kv(p, x, positions, cfg)
     k_nope = _latent_heads(c_kv, p["wk_b"])
     v = _latent_heads(c_kv, p["wv_b"])
-    q_full = torch.cat([q_nope, q_rope], dim=-1)
-    k_full = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, rope)],
-                       dim=-1)
-    out = blocked_causal_attention(q_full, k_full, v, scale=_mla_scale(cfg),
-                                   segment_ids=segment_ids)
+    q_full = constrain(torch.cat([q_nope, q_rope], dim=-1),
+                       ("batch", "seq", "heads", None))
+    k_full = constrain(
+        torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, rope)], dim=-1),
+        ("batch", "seq", "heads", None))
+    out = _local_blocked(q_full, k_full, v, _mla_scale(cfg), segment_ids)
     y = _out_proj(p, out)
     if return_kv:
         return y, (c_kv, k_rope)
@@ -424,9 +475,10 @@ def mla_prefill_chunk(p, x, positions, cache_ckv, cache_krope, offset: int,
     q_cat = torch.cat([q_latent, q_rope], dim=-1)           # (B,C,H,r+rope)
     kh_cat = torch.cat([c_kv, k_rope], dim=-1)[:, :, None]
     kc_cat = torch.cat([view_ckv, view_krope], dim=-1)[:, :, None]
-    o_latent = kops.prefill_attention(q_cat, kh_cat, c_kv[:, :, None], kc_cat,
-                                      view_ckv[:, :, None], offset,
-                                      scale=_mla_scale(cfg))   # (B,C,H,r)
+    o_latent = local_call(kops.prefill_attention,
+                          (q_cat, kh_cat, c_kv[:, :, None], kc_cat,
+                           view_ckv[:, :, None]), ((0, 2),) * 5, ((0, 2),),
+                          offset=offset, scale=_mla_scale(cfg))  # (B,C,H,r)
     off_w = offset % view_ckv.shape[1]
     if block_tables is None:
         write_cache_chunk(cache_ckv, c_kv, off_w, write_mask)

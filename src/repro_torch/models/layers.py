@@ -67,3 +67,16 @@ def swiglu(x, w_gate, w_up, w_down):
     u = x @ w_up
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ w_down
+
+
+def pad_before(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    """x with n zeros in front along `dim`: a constant left pad written as
+    a concatenation, which DTensor shards on any mesh (its pad rule fails
+    on a mesh of two or more axes in torch 2.11)."""
+    if n <= 0:
+        return x
+    dim = dim % x.dim()
+    shape = list(x.shape)
+    shape[dim] = n
+    zeros = torch.zeros_like(x.narrow(dim, 0, 1)).expand(*shape)
+    return torch.cat([zeros, x], dim=dim)

@@ -37,13 +37,15 @@ from torch.utils.checkpoint import checkpoint
 # only the import's frames.
 import torch._dynamo  # noqa: E402,F401
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import CACHE_LOGICAL, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import init_leaf, rms_norm, swiglu
+from repro_torch.models.layers import init_leaf, pad_before, rms_norm, swiglu
+from repro_torch.shardctx import (constrain, current_mesh, is_distributed,
+                                  merged_rules)
 
 Params = Dict[str, Any]
 
@@ -70,80 +72,114 @@ def _attention_shapes(cfg: ModelConfig, count: int) -> Dict[str, Any]:
     d, dt = cfg.d_model, cfg.dtype
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    Ll = ("layers",)
     if cfg.use_mla:
         qr, r = cfg.q_lora_rank, cfg.kv_lora_rank
         nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        heads = Ll + ("p_lora", "p_heads", "p_head_dim")
         return {
-            "wq_a": ((count, d, qr), dt, 0.02),
-            "q_norm": ((count, qr), dt, -1.0),
-            "wq_b": ((count, qr, H, nope + rope), dt, 0.02),
-            "wkv_a": ((count, d, r + rope), dt, 0.02),
-            "kv_norm": ((count, r), dt, -1.0),
-            "wk_b": ((count, r, H, nope), dt, 0.02),
-            "wv_b": ((count, r, H, vd), dt, 0.02),
-            "wo": ((count, H, vd, d), dt, out_scale),
+            "wq_a": ((count, d, qr), dt, 0.02, Ll + ("p_embed", "p_lora")),
+            "q_norm": ((count, qr), dt, -1.0, Ll + ("p_lora",)),
+            "wq_b": ((count, qr, H, nope + rope), dt, 0.02, heads),
+            "wkv_a": ((count, d, r + rope), dt, 0.02,
+                      Ll + ("p_embed", "p_lora")),
+            "kv_norm": ((count, r), dt, -1.0, Ll + ("p_lora",)),
+            "wk_b": ((count, r, H, nope), dt, 0.02, heads),
+            "wv_b": ((count, r, H, vd), dt, 0.02, heads),
+            "wo": ((count, H, vd, d), dt, out_scale,
+                   Ll + ("p_heads", "p_head_dim", "p_embed")),
         }
     a = {
-        "wq": ((count, d, H, Dh), dt, 0.02),
-        "wk": ((count, d, KV, Dh), dt, 0.02),
-        "wv": ((count, d, KV, Dh), dt, 0.02),
-        "wo": ((count, H, Dh, d), dt, out_scale),
+        "wq": ((count, d, H, Dh), dt, 0.02,
+               Ll + ("p_embed", "p_heads", "p_head_dim")),
+        "wk": ((count, d, KV, Dh), dt, 0.02,
+               Ll + ("p_embed", "p_kv_heads", "p_head_dim")),
+        "wv": ((count, d, KV, Dh), dt, 0.02,
+               Ll + ("p_embed", "p_kv_heads", "p_head_dim")),
+        "wo": ((count, H, Dh, d), dt, out_scale,
+               Ll + ("p_heads", "p_head_dim", "p_embed")),
     }
     if cfg.use_qk_norm:
-        a["qn"] = ((count, Dh), dt, -1.0)
-        a["kn"] = ((count, Dh), dt, -1.0)
+        a["qn"] = ((count, Dh), dt, -1.0, Ll + ("p_head_dim",))
+        a["kn"] = ((count, Dh), dt, -1.0, Ll + ("p_head_dim",))
     return a
 
 
 def _group_shapes(cfg: ModelConfig, kind: str, count: int) -> Dict[str, Any]:
     d, dt = cfg.d_model, cfg.dtype
-    g: Dict[str, Any] = {"norm1": ((count, d), dt, -1.0)}
+    norm = ((count, d), dt, -1.0, ("layers", "p_embed"))
+    g: Dict[str, Any] = {"norm1": norm}
     if cfg.has_attention:
         g["attn"] = _attention_shapes(cfg, count)
     if cfg.has_ssm:
         g["ssm"] = ssm_mod.ssm_shapes(cfg, count)
     if cfg.arch_type == "hybrid":
         # Hymba: per-branch output norms, fused by averaging
-        g["hyb_norm_a"] = ((count, d), dt, -1.0)
-        g["hyb_norm_s"] = ((count, d), dt, -1.0)
+        g["hyb_norm_a"] = norm
+        g["hyb_norm_s"] = norm
     if kind == "dense":
         ff = cfg.dense_d_ff if (cfg.n_experts and cfg.dense_d_ff) else cfg.d_ff
         out_scale = 0.02 / math.sqrt(2 * max(count, 1))
-        g["norm2"] = ((count, d), dt, -1.0)
-        g["ffn"] = {"gate": ((count, d, ff), dt, 0.02),
-                    "up": ((count, d, ff), dt, 0.02),
-                    "down": ((count, ff, d), dt, out_scale)}
+        g["norm2"] = norm
+        g["ffn"] = {"gate": ((count, d, ff), dt, 0.02,
+                             ("layers", "p_embed", "p_mlp")),
+                    "up": ((count, d, ff), dt, 0.02,
+                           ("layers", "p_embed", "p_mlp")),
+                    "down": ((count, ff, d), dt, out_scale,
+                             ("layers", "p_mlp", "p_embed"))}
     elif kind == "moe":
-        g["norm2"] = ((count, d), dt, -1.0)
+        g["norm2"] = norm
         g["moe"] = moe_mod.moe_shapes(cfg, count)
     return g
 
 
-def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
-    """(shape, dtype, init scale) of every leaf, in the JAX tree layout.
-    Scale: stddev of the normal init; 0.0 zeros; -1.0 ones."""
+def param_entries(cfg: ModelConfig) -> Dict[str, Any]:
+    """(shape, dtype, init scale, logical axes) of every leaf, in the JAX
+    tree layout: the JAX package's `ParamDef` fields. Scale: stddev of the
+    normal init; 0.0 zeros; -1.0 ones. Logical axes name each dim for the
+    sharding rules (`repro_torch.sharding`)."""
     d, V, dt = cfg.d_model, cfg.vocab_size, cfg.dtype
     shapes: Dict[str, Any] = {
-        "embed": ((V, d), dt, 0.02),
-        "final_norm": ((d,), dt, -1.0),
+        "embed": ((V, d), dt, 0.02, ("p_embed_vocab", "p_embed")),
+        "final_norm": ((d,), dt, -1.0, ("p_embed",)),
         "groups": [_group_shapes(cfg, kind, count)
                    for kind, count in layer_groups(cfg)],
     }
     if not cfg.tie_embeddings:
-        shapes["lm_head"] = ((d, V), dt, 0.02)
+        shapes["lm_head"] = ((d, V), dt, 0.02, ("p_embed", "p_vocab"))
     if cfg.use_value_head:
-        shapes["value_head"] = ((d, 1), torch.float32, 0.0)
+        shapes["value_head"] = ((d, 1), torch.float32, 0.0, ("p_embed", None))
     if cfg.modality in ("vision", "audio"):
         # learned projector from the (stubbed) frontend embedding space
-        shapes["mm_proj"] = ((d, d), dt, 0.02)
+        shapes["mm_proj"] = ((d, d), dt, 0.02, ("p_embed", None))
     if cfg.use_mtp:
         # DeepSeek-V3's MTP head: [norm(h_t); norm(emb_{t+1})] -> proj ->
         # one dense layer of width dense_d_ff
-        shapes["mtp"] = {"proj": ((2 * d, d), dt, 0.02),
-                         "norm_h": ((d,), dt, -1.0),
-                         "norm_e": ((d,), dt, -1.0),
+        shapes["mtp"] = {"proj": ((2 * d, d), dt, 0.02,
+                                  ("p_embed", "p_embed")),
+                         "norm_h": ((d,), dt, -1.0, ("p_embed",)),
+                         "norm_e": ((d,), dt, -1.0, ("p_embed",)),
                          "layer": _group_shapes(cfg, "dense", 1)}
     return shapes
+
+
+def map_entries(fn, node):
+    """Apply fn to every leaf entry of a `param_entries` tree."""
+    if isinstance(node, dict):
+        return {k: map_entries(fn, v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [map_entries(fn, v) for v in node]
+    return fn(node)
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """(shape, dtype, init scale) of every leaf, in the JAX tree layout."""
+    return map_entries(lambda e: e[:3], param_entries(cfg))
+
+
+def param_logical(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axis tuple of every leaf, in the JAX tree layout."""
+    return map_entries(lambda e: e[3], param_entries(cfg))
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
@@ -153,15 +189,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [build(v) for v in node]
-        shape, dtype, scale = node
-        return init_leaf(shape, dtype, scale, gen, device)
-
-    return build(param_shapes(cfg))
+    return map_entries(
+        lambda e: init_leaf(e[0], e[1], e[2], gen, device), param_entries(cfg))
 
 
 def layer_views(tree, n_layers: int) -> List[Any]:
@@ -185,6 +214,33 @@ def iter_layers(params: Params, cfg: ModelConfig
         for lp in layer_views(gp, count):
             yield l, kind, lp
             l += 1
+
+
+def _embed(params: Params, tokens) -> torch.Tensor:
+    """The embedding rows of `tokens` (B,S). A distributed table is
+    gathered whole and each rank reads its own tokens' rows, as GSPMD does
+    for the JAX package's vocab-split table; the table's gradient is then
+    a partial sum over the axes that split the tokens. DTensor's own rules
+    for the lookup fail in torch 2.11 (the indexing form's backward, an
+    accumulating `index_put` on a split index; `F.embedding`'s partial
+    rows reduced later)."""
+    table = params["embed"]
+    if not is_distributed(table):
+        return table[tokens]
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard)
+
+    mesh = table.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    if not is_distributed(tokens):
+        tokens = DTensor.from_local(tokens, mesh, rep, run_check=False)
+    tok_axes = [i for i, p in enumerate(tokens.placements)
+                if isinstance(p, Shard)]
+    grad = [Partial() if i in tok_axes else Replicate()
+            for i in range(mesh.ndim)]
+    rows = table.redistribute(mesh, rep).to_local(grad_placements=grad)
+    out = rows[tokens.to_local()]
+    return DTensor.from_local(out, mesh, tokens.placements, run_check=False)
 
 
 def _head(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -224,12 +280,23 @@ def _ffn(cfg: ModelConfig, kind: str, h, lp):
 def _fused_head_stats(params: Params, cfg: ModelConfig, hs, tgt):
     """The fused lm-head call: hs (N,D) rows against the head, targets (N,).
     Returns (lp, lse, ent). Tied embeddings pass `params["embed"]` in its
-    own (V,D) layout (`transpose_head`), so no transposed copy is made."""
+    own (V,D) layout (`transpose_head`), so no transposed copy is made.
+    Under a mesh (`shardctx.sharding_context`) the call is vocab-parallel
+    over the mesh axis the head's vocab rule names
+    (`kernels.sharded.fused_logprob_sharded`: each shard runs the fused
+    kernels on its slice, three (N,) sums combine them), as the JAX
+    package's `_fused_head_stats` routes it."""
     if cfg.tie_embeddings:
-        return kops.fused_logprob(hs, params["embed"], tgt,
-                                  transpose_head=True)
-    return kops.fused_logprob(hs, params["lm_head"], tgt,
-                              transpose_head=False)
+        head, transpose, logical = params["embed"], True, "p_embed_vocab"
+    else:
+        head, transpose, logical = params["lm_head"], False, "p_vocab"
+    mesh = current_mesh()
+    if mesh is not None:
+        from repro_torch.kernels.sharded import fused_logprob_sharded
+        return fused_logprob_sharded(hs, head, tgt, mesh=mesh,
+                                     axis_name=merged_rules().get(logical),
+                                     transpose_head=transpose)
+    return kops.fused_logprob(hs, head, tgt, transpose_head=transpose)
 
 
 def _fused_loss_stats(params: Params, cfg: ModelConfig, h, loss_targets):
@@ -244,7 +311,7 @@ def _fused_loss_stats(params: Params, cfg: ModelConfig, h, loss_targets):
                                      loss_targets.reshape(B * S))
 
     def shift(x):
-        return F.pad(x.reshape(B, S)[:, :-1], (1, 0))
+        return pad_before(x.reshape(B, S)[:, :-1], 1, 1)
 
     return {"token_logprobs": shift(lp), "lse": shift(lse),
             "entropy": shift(ent)}
@@ -259,7 +326,7 @@ def _mtp_hidden(params: Params, cfg: ModelConfig, hidden, tokens,
     prediction of token t+2."""
     mp = params["mtp"]
     h_t = rms_norm(hidden[:, :-1], mp["norm_h"], cfg.norm_eps)
-    e_next = rms_norm(params["embed"][tokens[:, 1:]], mp["norm_e"],
+    e_next = rms_norm(_embed(params, tokens[:, 1:]), mp["norm_e"],
                       cfg.norm_eps)
     x = torch.cat([h_t, e_next], dim=-1) @ mp["proj"]
     (lp,) = layer_views(mp["layer"], 1)
@@ -295,7 +362,8 @@ def _outputs(params: Params, cfg: ModelConfig, h, logits: bool,
     if cfg.fused_loss and loss_targets is not None:
         out.update(_fused_loss_stats(params, cfg, h, loss_targets))
     elif logits:
-        out["logits"] = h @ _head(params, cfg)
+        out["logits"] = constrain(h @ _head(params, cfg),
+                                  ("batch", "seq", "vocab"))
     if cfg.use_value_head:
         out["values"] = (h.float() @ params["value_head"])[..., 0]
     return out
@@ -330,8 +398,10 @@ def _layer(cfg: ModelConfig, kind: str, h, lp, positions, segment_ids,
         return s
 
     x = rms_norm(h, lp["norm1"], cfg.norm_eps)
-    h = h + _mix(cfg, lp, x, attn_fn, ssm_fn)
+    h = constrain(h + _mix(cfg, lp, x, attn_fn, ssm_fn),
+                  ("batch", "seq", "embed"))
     h, aux = _ffn(cfg, kind, h, lp)
+    h = constrain(h, ("batch", "seq", "embed"))
     return h, aux, (cache if want_cache else None)
 
 
@@ -365,7 +435,7 @@ def forward(params: Params, tokens, positions, cfg: ModelConfig, *,
     positions), unless the call asks for neither logits nor the fused
     stats."""
     tok_positions = positions
-    h = params["embed"][tokens]
+    h = _embed(params, tokens)
     n_prefix = 0
     if prefix_embeds is not None:
         B, n_prefix = prefix_embeds.shape[:2]
@@ -378,6 +448,7 @@ def forward(params: Params, tokens, positions, cfg: ModelConfig, *,
         if segment_ids is not None:
             segment_ids = torch.cat([segment_ids.new_zeros((B, n_prefix)),
                                      segment_ids], dim=1)
+    h = constrain(h, ("batch", "seq", "embed"))
     total_aux = torch.zeros((), dtype=torch.float32, device=h.device)
     caches: List[Dict[str, torch.Tensor]] = []
     remat = cfg.remat and torch.is_grad_enabled() and not return_cache
@@ -401,7 +472,8 @@ def forward(params: Params, tokens, positions, cfg: ModelConfig, *,
                                 tok_positions, fused))
     out["aux_loss"] = total_aux
     if return_cache:
-        out["cache"] = {k: torch.stack([c[k] for c in caches])
+        out["cache"] = {k: constrain(torch.stack([c[k] for c in caches]),
+                                     CACHE_LOGICAL[k])
                         for k in caches[0]}
     return out
 
@@ -427,7 +499,7 @@ def decode_step(params: Params, tokens, positions, cache, cache_index,
     if ring is None:
         ring = (("k" in cache or "c_kv" in cache)
                 and cfg.attention_variant == "sliding_window")
-    h = params["embed"][tokens]
+    h = constrain(_embed(params, tokens), ("batch", "seq", "embed"))
     for l, kind, lp in iter_layers(params, cfg):
 
         def attn_fn(pa, x, l=l):
@@ -491,7 +563,7 @@ def prefill_chunk(params: Params, tokens, prompt_len, offset: int, admit_mask,
     pos_valid = positions < (prompt_len[:, None] - 1)            # (B,C)
     kv_write_mask = admit_mask[:, None] & pos_valid              # (B,C)
     tok_mask = pos_valid.float()
-    h = params["embed"][toks]
+    h = constrain(_embed(params, toks), ("batch", "seq", "embed"))
     for l, kind, lp in iter_layers(params, cfg):
 
         def attn_fn(pa, x, l=l):

@@ -25,12 +25,14 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import pad_before, rms_norm
+from repro_torch.shardctx import (constrain, local_call, merge_last,
+                                  split_last)
 
 
 def ssm_shapes(cfg: ModelConfig, n_stack: int) -> Dict[str, Any]:
-    """(shape, dtype, init scale) of the SSM leaves of `n_stack` stacked
-    layers, as `repro.models.ssm.ssm_defs` defines them."""
+    """(shape, dtype, init scale, logical axes) of the SSM leaves of
+    `n_stack` stacked layers, as `repro.models.ssm.ssm_defs` defines them."""
     d, dt = cfg.d_model, cfg.dtype
     di, G, N, H = cfg.d_inner, cfg.ssm_n_groups, cfg.ssm_state, cfg.n_ssm_heads
     conv_ch = di + 2 * G * N
@@ -38,14 +40,17 @@ def ssm_shapes(cfg: ModelConfig, n_stack: int) -> Dict[str, Any]:
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
     return {
         # in_proj emits [z (di), xBC (di + 2GN), dt (H)]
-        "in_proj": ((L, d, 2 * di + 2 * G * N + H), dt, 0.02),
-        "conv_w": ((L, cfg.d_conv, conv_ch), dt, 0.02),
-        "conv_b": ((L, conv_ch), dt, 0.0),
-        "A_log": ((L, H), torch.float32, -1.0),
-        "D": ((L, H), torch.float32, -1.0),
-        "dt_bias": ((L, H), torch.float32, 0.0),
-        "gate_norm": ((L, di), dt, -1.0),
-        "out_proj": ((L, di, d), dt, out_scale),
+        "in_proj": ((L, d, 2 * di + 2 * G * N + H), dt, 0.02,
+                    ("layers", "p_embed", "p_inner")),
+        "conv_w": ((L, cfg.d_conv, conv_ch), dt, 0.02,
+                   ("layers", "p_conv", "p_inner")),
+        "conv_b": ((L, conv_ch), dt, 0.0, ("layers", "p_inner")),
+        "A_log": ((L, H), torch.float32, -1.0, ("layers", "p_none")),
+        "D": ((L, H), torch.float32, -1.0, ("layers", "p_none")),
+        "dt_bias": ((L, H), torch.float32, 0.0, ("layers", "p_none")),
+        "gate_norm": ((L, di), dt, -1.0, ("layers", "p_inner")),
+        "out_proj": ((L, di, d), dt, out_scale,
+                     ("layers", "p_inner", "p_embed")),
     }
 
 
@@ -133,7 +138,7 @@ def _causal_conv(xBC, w, bias, left=None):
     absent: the start of a sequence)."""
     k = w.shape[0]
     if left is None:
-        pad = F.pad(xBC, (0, 0, k - 1, 0))
+        pad = pad_before(xBC, k - 1, -2)
     else:
         pad = torch.cat([left.to(xBC.dtype), xBC], dim=1)
     S = xBC.shape[1]
@@ -175,11 +180,12 @@ def ssm_forward(p, x, cfg: ModelConfig, return_state: bool = False,
     xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"], left=conv_left)
     xBC = F.silu(xBC.float()).to(x.dtype)
     xs, B, C = torch.split(xBC, [di, G * N, G * N], dim=-1)
-    b, S = x.shape[0], x.shape[1]
+    xs = constrain(xs, ("batch", "seq", "mlp"))
+    S = x.shape[1]
     # views of xBC: the kernel reads them through their strides
-    xs = xs.reshape(b, S, H, P)
-    B = B.reshape(b, S, G, N)
-    C = C.reshape(b, S, G, N)
+    xs = split_last(xs, H, P)
+    B = split_last(B, G, N)
+    C = split_last(C, G, N)
     dt = F.softplus(dt.float() + p["dt_bias"])
     if token_mask is not None:
         # masked tokens: dt = 0 => decay exp(0) = 1 and input dt*x = 0, a
@@ -189,16 +195,26 @@ def ssm_forward(p, x, cfg: ModelConfig, return_state: bool = False,
     # the kernel raises for widths it does not hold (bfloat16: N above 256,
     # P above 256, or 128 above N 128; float32: a state and two chunk
     # tiles past a block's shared memory), which no config here reaches
+    # under a mesh each rank scans its batch rows and heads; heads split
+    # across ranks carry their groups along (G == 1: every rank reads the
+    # one group whole)
+    grp = None if G == 1 else 2
+    dims = ((0, 2), (0, 2), (None, 0), (0, grp), (0, grp))
     if (S % cfg.ssm_chunk == 0 and ssd_init is None and token_mask is None
             and not _differentiated(xs, dt, A, B, C)):
-        y, state = kops.ssd_scan(xs, dt, A, B, C, chunk=cfg.ssm_chunk)
+        y, state = local_call(kops.ssd_scan, (xs, dt, A, B, C), dims,
+                              ((0, 2), (0, 1)), chunk=cfg.ssm_chunk)
         y = y.float()
         state = state.transpose(-1, -2)  # the kernel emits (b,h,n,p)
+    elif ssd_init is None:
+        y, state = local_call(ssd_chunked, (xs, dt, A, B, C), dims,
+                              ((0, 2), (0, 1)), chunk=cfg.ssm_chunk)
     else:
-        y, state = ssd_chunked(xs, dt, A, B, C, cfg.ssm_chunk,
-                               initial_state=ssd_init)
+        y, state = local_call(
+            lambda *a: ssd_chunked(*a[:5], cfg.ssm_chunk, initial_state=a[5]),
+            (xs, dt, A, B, C, ssd_init), dims + ((0, 1),), ((0, 2), (0, 1)))
     y = y + xs.float() * p["D"][None, None, :, None]
-    y = y.reshape(b, S, di).to(x.dtype)
+    y = merge_last(y).to(x.dtype)
     y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["gate_norm"],
                  cfg.norm_eps)
     out = y @ p["out_proj"]
@@ -211,7 +227,7 @@ def ssm_forward(p, x, cfg: ModelConfig, return_state: bool = False,
     if conv_left is not None:
         pre = torch.cat([conv_left.to(xBC_pre.dtype), xBC_pre], dim=1)
     else:
-        pre = F.pad(xBC_pre, (0, 0, max(0, k - 1 - S), 0))
+        pre = pad_before(xBC_pre, max(0, k - 1 - S), -2)
     if token_mask is None:
         return out, (pre[:, -(k - 1):], state)
     # per row: the k-1 inputs ending at the last valid position. rel = the
@@ -220,7 +236,7 @@ def ssm_forward(p, x, cfg: ModelConfig, return_state: bool = False,
     # through unchanged. The gather needs exactly k-1 rows of left context:
     # zero padding when no state was carried (start of sequence).
     if conv_left is None:
-        pre = F.pad(xBC_pre, (0, 0, k - 1, 0))
+        pre = pad_before(xBC_pre, k - 1, -2)
     rel = token_mask.sum(dim=1).long()                            # (B,)
     idx = rel[:, None] + torch.arange(k - 1, device=x.device)[None]
     conv_new = torch.gather(pre, 1,
@@ -234,7 +250,6 @@ def ssm_decode(p, x, conv_state, ssd_state, cfg: ModelConfig):
     (conv_state, ssd_state)."""
     di, G, N, H = cfg.d_inner, cfg.ssm_n_groups, cfg.ssm_state, cfg.n_ssm_heads
     P = cfg.ssm_head_dim
-    b = x.shape[0]
     zxbcdt = (x @ p["in_proj"])[:, 0]
     z, xBC, dt = torch.split(zxbcdt, [di, di + 2 * G * N, H], dim=-1)
     # conv over [state ; new]
@@ -243,10 +258,10 @@ def ssm_decode(p, x, conv_state, ssd_state, cfg: ModelConfig):
     conv_state = window[:, 1:]
     xBC = F.silu(conv_out.float()).to(x.dtype)
     xs, B, C = torch.split(xBC, [di, G * N, G * N], dim=-1)
-    xs = xs.reshape(b, H, P)
+    xs = split_last(xs, H, P)
     rep = H // G
-    Bh = B.reshape(b, G, N).repeat_interleave(rep, dim=1).float()  # (b,H,N)
-    Ch = C.reshape(b, G, N).repeat_interleave(rep, dim=1).float()
+    Bh = split_last(B, G, N).repeat_interleave(rep, dim=1).float()  # (b,H,N)
+    Ch = split_last(C, G, N).repeat_interleave(rep, dim=1).float()
     dt = F.softplus(dt.float() + p["dt_bias"])                    # (b,H)
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dt * A[None])                                  # (b,H)
@@ -255,7 +270,7 @@ def ssm_decode(p, x, conv_state, ssd_state, cfg: ModelConfig):
         + dx[..., :, None] * Bh[..., None, :]
     y = torch.einsum("bhpn,bhn->bhp", ssd_state, Ch)              # (b,H,P)
     y = y + xs.float() * p["D"][None, :, None]
-    y = y.reshape(b, di).to(x.dtype)
+    y = merge_last(y).to(x.dtype)
     y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["gate_norm"],
                  cfg.norm_eps)
     out = (y @ p["out_proj"])[:, None]

@@ -14,6 +14,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.core.weights import tree_flatten, tree_unflatten
+from repro_torch.shardctx import is_distributed
 
 # elements per slice when a large leaf is updated slice by slice along its
 # first axis: bounds the float32 temporaries of one leaf's update
@@ -108,7 +109,8 @@ def adam_update(params, grads, state: AdamState, cfg: AdamConfig, lr=None,
     flat_v = tree_flatten(state.v)[0]
     out_p, out_m, out_v = [], [], []
     for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-        parts = _slices(p)
+        # a distributed leaf is updated whole: each rank holds its shard
+        parts = [slice(None)] if is_distributed(p) else _slices(p)
         if len(parts) == 1:
             np_, nm, nv = guarded(p, g, m, v)
         else:

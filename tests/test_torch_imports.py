@@ -44,6 +44,10 @@ print("NEW", "repro_torch.models.moe" in sys.modules, all(
         "phi3_vision_4_2b", "musicgen_medium")))
 print("A7", all(m in sys.modules for m in (
     "repro_torch.core.serving", "repro_torch.core.evaluator")))
+print("A7D", all("repro_torch." + m in sys.modules for m in (
+    "sharding", "shardctx", "kernels.sharded", "launch.mesh",
+    "launch.steps", "launch.dryrun", "launch.train", "roofline.analysis",
+    "roofline.calibrate")))
 print("BAD", bad)
 """
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)],
@@ -55,6 +59,7 @@ print("BAD", bad)
     assert "SSM True True" in out.stdout, out.stdout
     assert "NEW True True" in out.stdout, out.stdout
     assert "A7 True" in out.stdout, out.stdout
+    assert "A7D True" in out.stdout, out.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -151,3 +156,12 @@ def test_server_and_evaluator_default_to_the_card(monkeypatch):
     assert srv.device.type == srv.engine.device.type == "cpu"
     ev = Evaluator(cfg, task, n_problems=2, max_len=8, device="cpu")
     assert ev.evaluate(params)["n"] >= 2
+
+
+def test_cli_defaults_to_the_card(monkeypatch):
+    """`python -m repro_torch.launch.train` runs on the card unless
+    `--device cpu` is given, and raises without one."""
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1"])

@@ -215,13 +215,26 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 def test_unsupported_device_raises():
+    """A meta tensor (the dry-run's trace) takes the plain version's shapes
+    and runs nothing; a DTensor is refused (a kernel takes local shards,
+    `shardctx.local_call`)."""
+    from torch_twin import fake_dtensor
+
     q = torch.zeros(1, 4, 16, device="meta")
     kc = torch.zeros(1, 8, 2, 16, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        ops.flash_decode(q, kc, kc, torch.ones(1, dtype=torch.int32,
-                                               device="meta"), scale=0.25)
-    with pytest.raises(ValueError, match="unsupported device"):
-        ops.flash_decode_paged(q, kc, kc, torch.ones((1, 1), dtype=torch.int32,
-                                                     device="meta"),
-                               torch.ones(1, dtype=torch.int32,
-                                          device="meta"), scale=0.25)
+    lengths = torch.ones(1, dtype=torch.int32, device="meta")
+    table = torch.ones((1, 1), dtype=torch.int32, device="meta")
+    for out in (ops.flash_decode(q, kc, kc, lengths, scale=0.25),
+                ops.flash_decode_paged(q, kc, kc, table, lengths,
+                                       scale=0.25)):
+        assert out.device.type == "meta" and out.shape == (1, 4, 16)
+    with fake_dtensor(torch.zeros(1, 4, 16)) as dq:
+        ck = torch.zeros(1, 8, 2, 16)
+        with pytest.raises(TypeError, match="local tensors"):
+            ops.flash_decode(dq, ck, ck, torch.ones(1, dtype=torch.int32),
+                             scale=0.25)
+        with pytest.raises(TypeError, match="local tensors"):
+            ops.flash_decode_paged(dq, ck, ck,
+                                   torch.ones((1, 1), dtype=torch.int32),
+                                   torch.ones(1, dtype=torch.int32),
+                                   scale=0.25)

@@ -162,11 +162,22 @@ def test_ssd_scan_on_cpu_takes_the_plain_version():
 
 
 def test_ssd_scan_unsupported_device_raises():
+    """A meta tensor (the dry-run's trace) takes the plain scan's shapes;
+    a DTensor is refused (the kernel takes local shards)."""
+    from torch_twin import fake_dtensor
+
     x = torch.zeros(1, 16, 2, 8, device="meta")
     dt = torch.zeros(1, 16, 2, device="meta")
     B = torch.zeros(1, 16, 1, 8, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        ops.ssd_scan(x, dt, torch.zeros(2, device="meta"), B, B, chunk=16)
+    y, state = ops.ssd_scan(x, dt, torch.zeros(2, device="meta"), B, B,
+                            chunk=16)
+    assert y.device.type == "meta" and y.shape == x.shape
+    assert state.shape == (1, 2, 8, 8) and state.dtype == torch.float32
+    with fake_dtensor(torch.zeros(1, 16, 2, 8)) as dx:
+        with pytest.raises(TypeError, match="local tensors"):
+            ops.ssd_scan(dx, torch.zeros(1, 16, 2), torch.zeros(2),
+                         torch.zeros(1, 16, 1, 8), torch.zeros(1, 16, 1, 8),
+                         chunk=16)
 
 
 @pytest.mark.parametrize("bad", ["chunk", "head_dim", "groups", "dt_dtype",

@@ -75,6 +75,23 @@ def one_thread():
         torch.set_num_threads(n)
 
 
+@contextlib.contextmanager
+def fake_dtensor(t: torch.Tensor):
+    """`t` as a replicated DTensor on a one-rank fake process group, which
+    is destroyed on exit (the group is process-global)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        mesh = DeviceMesh("cpu", torch.arange(1), mesh_dim_names=("model",))
+        yield DTensor.from_local(t, mesh, [Replicate()], run_check=False)
+    finally:
+        dist.destroy_process_group()
+
+
 def tasks(**kw):
     """A fresh task per package: the prompt stream's RNG is run state."""
     kw = dict(dict(max_operand=5, ops="+"), **kw)
