@@ -12,6 +12,7 @@ Run from the repository root:
     python3 chip_smoke.py --only build,kernels,train --train-layers 2
     python3 chip_smoke.py --only build,kernels,serve --layers 2
     python3 chip_smoke.py --only env,build,sharded,launch,dryrun
+    python3 chip_smoke.py --only env,build,mesh
 
 Phases, one JSON line each, every line tagged with the GPU's name and power
 limit (`nvidia-smi --query-gpu=name,power.limit`):
@@ -239,12 +240,37 @@ limit (`nvidia-smi --query-gpu=name,power.limit`):
    expert-parallel against the unsharded port path (output 2e-2 of its
    largest entry, the aux loss 1e-5, every routing decision equal); the
    times of both, each rank's including the other's share of the card.
-14. launch: `repro_torch.launch.train.main` on the card, the tiny
+14. mesh: the executed multi-rank runtime on four gloo ranks on cuda:0,
+   granite-3-2b at published widths (d 2048, 32/8 heads, vocab 49155) in
+   bfloat16, its depth cut from 40 layers to `--mesh-layers` (default 4;
+   the cut is printed). Gathers take the process group's all-gather
+   (`shardctx.redistribute`): DTensor's functional all-gather crashes on
+   CUDA tensors over gloo. (a) A slot engine on a 2-rank submesh with the
+   default rules (heads split, the cache split along `cache_seq`) against
+   the one-rank engine over 20 decode steps, token for token in float32;
+   then in bfloat16, with the default rules and with the cache split by
+   KV heads instead (no gather), timed per step, with the gathers and the
+   lockstep broadcasts per step and the share of tokens equal to the
+   one-rank engine's (reported). (b) `record_cosim_trace` on that engine
+   and `replay_trace`, within 5%. (c) `PipelineRL(mesh=)`: the trainer on
+   all four ranks, two paged engines on disjoint 2-rank submeshes (chunk
+   64, page 64, prefix-shared GRPO groups), 3 optimizer steps, a streamed
+   broadcast in 8 chunks through `MeshBroadcastExecutor`: every rank's log,
+   event times, rollouts and lockstep counts equal, each engine bit for
+   bit the trainer's parameters of its version, the stamps, at least one
+   executed publication, and each rank's exact launches (the paged decode
+   and the prefill kernel of its own engine, the fused forward and
+   backward once per step). (d) `execute_weight_update` on the ranks as a
+   (2, 2) ("data", "model") mesh in 8 chunks, beside the dry-run's
+   `t_collective_s` of the same update. It reports the per-chunk executed
+   seconds and bytes, the decode step with and without the gather, the
+   trainer step and each rank's peak memory.
+15. launch: `repro_torch.launch.train.main` on the card, the tiny
    pipeline for 4 steps with the fused loss, max_len 64 and the reference
    KL: its step lines, the kernels it launched and how often, finite
    rewards and losses, and which attention kernel (if any) no step
    engaged.
-15. dryrun: the port's dry-run (`repro_torch.launch.dryrun`) on meta
+16. dryrun: the port's dry-run (`repro_torch.launch.dryrun`) on meta
    DTensors over a fake 128-rank process group, on the host's CPU beside
    the GPU phases (started first, collected last): granite-3-2b x
    {train_4k, decode_32k} with the weight update whole and in 3 chunks,
@@ -281,12 +307,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("env", "build", "kernels", "serve", "train", "pipeline", "ssm",
           "hybrid", "moe", "mla", "server", "faults", "dryrun", "sharded",
-          "launch")
+          "mesh", "launch")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores,
 # float32 outside the tensor cores, HBM3 bandwidth
@@ -1645,15 +1672,15 @@ def _paged_against_slots(cfg, params, dev, n_prompts: int,
 # the loop phases' shared pieces (pipeline, ssm, hybrid, moe)
 # ---------------------------------------------------------------------------
 
-def _grpo_source(rng, vocab_size: int):
-    """Prompts of 256-384 random ids in GRPO groups: each is yielded
-    PIPE_GROUP times in a row."""
+def _grpo_source(rng, vocab_size: int, lengths=(256, 384)):
+    """Prompts of `lengths` (256-384) random ids in GRPO groups: each is
+    yielded PIPE_GROUP times in a row."""
     from repro_torch.data.math_task import Problem
     group = {"left": 0, "ids": None}
 
     def source():
         if group["left"] == 0:
-            n = int(rng.integers(256, 385))
+            n = int(rng.integers(lengths[0], lengths[1] + 1))
             group["ids"] = rng.integers(3, vocab_size, n).tolist()
             group["left"] = PIPE_GROUP
         group["left"] -= 1
@@ -3567,7 +3594,582 @@ def phase_sharded(gpu: str, device="cuda", loss_shape=SHARDED_LOSS,
 
 
 # ---------------------------------------------------------------------------
-# phase 15: the launch CLI on the card
+# phase 15: the executed multi-rank runtime, four gloo ranks on one card
+# ---------------------------------------------------------------------------
+
+MESH_WORLD = 4
+MESH_STEPS = 20            # decode steps of the engine check
+MESH_CHUNKS = 8            # the pipeline's streamed broadcast
+
+
+def _mesh_digest(rollouts) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for r in rollouts:
+        h.update(np.asarray(r.tokens).tobytes())
+        h.update(np.asarray(r.weight_versions).tobytes())
+    return h.hexdigest()
+
+
+def _mesh_engine_check(cfg, sub, rank, dev) -> dict:
+    """A slot engine on a 2-rank submesh (default rules: heads split, the
+    cache split along `cache_seq`) against the one-rank engine, token for
+    token over MESH_STEPS decode steps, in float32: the tensor-parallel
+    partial sums differ from the one-device products by ~1e-7, far below
+    any sampling margin, where bfloat16 differs by an ulp (0.4%) and flips
+    near-ties. Then the bfloat16 engine, with the default rules and with
+    the cache split by KV heads (`cache_seq` replicated: no gather), timed
+    per decode step; how far its tokens follow the one-rank engine's is
+    reported, not held."""
+    import dataclasses
+
+    from repro_torch import EngineConfig, GenerationEngine
+    from repro_torch.models import model as M
+    from repro_torch.shardctx import STAGED
+
+    ec = EngineConfig(n_slots=16, max_len=512, prefill_chunk=64,
+                      temperature=1.0)
+    out = {}
+    for name, dtype, rules in (("float32", torch.float32, None),
+                               ("bfloat16", torch.bfloat16, None),
+                               ("bfloat16_no_gather", torch.bfloat16,
+                                {"cache_seq": None})):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        params = M.init_params(c, seed=0, device=dev)
+
+        def source():
+            return _random_source(np.random.default_rng(1), c.vocab_size)
+
+        eng = GenerationEngine(c, params, ec, source(), seed=3, device=dev,
+                               mesh=sub, rules=rules)
+        ref = (GenerationEngine(c, params, ec, source(), seed=3, device=dev)
+               if rank == 0 and name != "bfloat16_no_gather" else None)
+        del params
+        rec = {"step_ms": [], "ref_step_ms": [], "first_difference": None,
+               "rollouts": []}
+        eng.refill()
+        if ref is not None:
+            ref.refill()
+        g0, l0 = dict(STAGED), dict(eng.lockstep)
+        for i in range(MESH_STEPS):
+            _sync(dev)
+            t0 = time.perf_counter()
+            rec["rollouts"] += eng.step()
+            _sync(dev)
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            if ref is not None:
+                gstate = ref.generator.get_state()
+                t0 = time.perf_counter()
+                logits = _ref_step_logits(ref)
+                _sync(dev)
+                rec["ref_step_ms"].append((time.perf_counter() - t0) * 1e3)
+                bad = torch.nonzero(eng.state["tokens"] != ref.state["tokens"])
+                if len(bad) and rec["first_difference"] is None:
+                    s, t = (int(v) for v in bad[0])
+                    rec["first_difference"] = dict(
+                        step=i, slot=s, position=t,
+                        mesh=int(eng.state["tokens"][s, t]),
+                        one_rank=int(ref.state["tokens"][s, t]),
+                        mesh_lp=float(eng.state["lp"][s, t]),
+                        one_rank_lp=float(ref.state["lp"][s, t]),
+                        **_score_margin(logits, gstate, s,
+                                        int(ref.state["tokens"][s, t]),
+                                        int(eng.state["tokens"][s, t]),
+                                        float(eng.state["lp"][s, t]),
+                                        ec.temperature))
+        if ref is not None:
+            # over the sampled positions only (the prompts are shared)
+            pos = torch.arange(ec.max_len, device=dev)[None]
+            plen = torch.as_tensor(ref._host_prompt_len, device=dev)[:, None]
+            ncached = torch.as_tensor(ref._host_ncached, device=dev)[:, None]
+            sampled = (pos >= plen) & (pos <= ncached)
+            same = (eng.state["tokens"] == ref.state["tokens"]) & sampled
+            rec["sampled_tokens"] = int(sampled.sum())
+            rec["tokens_equal_share"] = float(same.sum() / sampled.sum())
+        rec["steps"] = MESH_STEPS
+        rec["gathers_per_step"] = (STAGED["gathers"] - g0["gathers"]) \
+            / MESH_STEPS
+        rec["gather_bytes_per_step"] = (STAGED["bytes"] - g0["bytes"]) \
+            / MESH_STEPS
+        rec["broadcasts_per_step"] = (eng.lockstep["broadcasts"]
+                                      - l0["broadcasts"]) / MESH_STEPS
+        rec["broadcast_bytes_per_step"] = (eng.lockstep["bytes"]
+                                           - l0["bytes"]) / MESH_STEPS
+        rec["step_ms_median"] = statistics.median(rec["step_ms"])
+        if rec["ref_step_ms"]:
+            rec["ref_step_ms_median"] = statistics.median(rec["ref_step_ms"])
+        rec["cache_placements"] = (str(eng.state["cache"]["k"].placements)
+                                   if eng._runs else None)
+        rec["rollouts"] = _mesh_digest(rec["rollouts"])
+        if name == "bfloat16":
+            out["_engine"] = eng       # the co-sim runs on it
+        out[name] = rec
+        del eng, ref
+    return out
+
+
+def _ref_step_logits(ref) -> torch.Tensor:
+    """`ref.step()` on the one-rank engine, returning the (H, V) logits
+    its decode step sampled from."""
+    from repro_torch.models import model as M
+    raw, seen = M.decode_step, {}
+
+    def decode_step(*a, **k):
+        out = raw(*a, **k)
+        seen["logits"] = out["logits"][:, 0]
+        return out
+
+    M.decode_step = decode_step
+    try:
+        ref.step()
+    finally:
+        M.decode_step = raw
+    return seen["logits"]
+
+
+def _score_margin(logits, gstate, slot: int, a: int, b: int,
+                  mesh_lp: float, temperature: float) -> dict:
+    """The one-rank engine's Gumbel-max scores of its token `a` and of the
+    mesh engine's token `b` in row `slot` at the step where they first
+    differ: the draws are those of the generator state `gstate` the step
+    began with (one seed, so the same draws in both engines), the
+    logprobs as `core/rollout._engine_step` takes them. `score_margin` is
+    how far `a` won there; `lp_shift` is the mesh engine's logprob of `b`
+    less the one-rank engine's."""
+    g = torch.Generator(device=logits.device)
+    g.set_state(gstate)
+    u = torch.rand(logits.shape, generator=g, device=logits.device)[slot]
+    gumbel = -torch.log(-torch.log(u))
+    logp = torch.log_softmax((logits / max(temperature, 1e-6)).float(),
+                             dim=-1)[slot]
+    score = logp + gumbel
+    return {"one_rank_lp_of_mesh_token": float(logp[b]),
+            "gumbel": [float(gumbel[a]), float(gumbel[b])],
+            "score_margin": float(score[a] - score[b]),
+            "lp_shift": mesh_lp - float(logp[b])}
+
+
+def _mesh_cosim(eng, cfg, dev) -> dict:
+    """`record_cosim_trace` on the bfloat16 mesh engine (a publication every
+    8 ticks in 4 chunks, placed on the engine's submesh and measured), then
+    `replay_trace` through the EventLoop twin."""
+    from repro_torch.core.weights import tree_flatten, tree_unflatten
+    from repro_torch.launch.meshrt import record_cosim_trace, replay_trace
+    from repro_torch.models import model as M
+
+    params = M.init_params(cfg, seed=5, device=dev)
+    leaves, treedef = tree_flatten(params)
+    trace = record_cosim_trace(eng, tree_unflatten(treedef, leaves),
+                               n_ticks=24, publish_every=8, n_chunks=4)
+    rep = replay_trace(trace)
+    rep.pop("versions_sim")
+    return {"replay": rep,
+            "chunk_s": [t["chunk_s"] for t in trace["ticks"]
+                        if t["chunk_s"] is not None],
+            "decode_s_median": statistics.median(
+                t["decode_s"] for t in trace["ticks"])}
+
+
+def _mesh_pipeline(cfg, world, rank, dev) -> dict:
+    """PipelineRL on the mesh: the trainer on all four ranks, two paged
+    engines on 2-rank submeshes (the pipeline phase's engine: chunk 64,
+    page 64, prefix-shared GRPO groups), 3 optimizer steps, a streamed
+    broadcast in MESH_CHUNKS chunks through `MeshBroadcastExecutor`. The
+    trainer's whole parameters are kept at every version, so each engine
+    is held bit for bit to the version it holds."""
+    import dataclasses
+
+    from repro_torch import (AdamConfig, EngineConfig, HardwareModel,
+                             PipelineConfig, PipelineRL, Trainer)
+    from repro_torch.core.weights import (chunk_spans, span_bytes,
+                                          tree_bytes, tree_flatten)
+    from repro_torch.data.math_task import MathTask
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.shardctx import STAGED, full
+
+    # the pipeline phase's engine with max_len 192 and prompts of 96-160
+    # ids: completions of 32-96 tokens, fewer decode steps and prefill
+    # chunks of a host-staged engine
+    ec = EngineConfig(n_slots=16, max_len=192, prefill_chunk=64,
+                      cache="paged", page_size=64, paged_attention="kernel",
+                      prefix_sharing=True, temperature=1.0)
+    pc = PipelineConfig(batch_size=16, n_opt_steps=3, pack_rows=4,
+                        pack_seq=1024, n_engines=2, broadcast="streamed",
+                        broadcast_chunks=MESH_CHUNKS, group_baseline=True)
+    params = M.init_params(cfg, seed=0, device=dev)
+    trainer = Trainer(cfg, params, adam=AdamConfig(lr=1e-3), device=dev,
+                      mesh=world)
+    base = HardwareModel()
+    per_chip = ec.n_slots / (pc.n_chips - pc.train_chips)
+    hw = dataclasses.replace(base, bcast_bytes_per_flash=tree_bytes(params)
+                             / (PIPE_BCAST_STEPS * base.step_cost(per_chip)))
+    p = PipelineRL(cfg, params, MathTask(), ec, pc, hw=hw, trainer=trainer,
+                   prompt_source=_grpo_source(np.random.default_rng(0),
+                                              cfg.vocab_size, (96, 160)),
+                   device=dev, mesh=world)
+    del params
+
+    def whole(tree):
+        return [full(x).clone() for x in tree_flatten(tree)[0]]
+
+    snaps = {0: whole(trainer.params)}
+    rec = {"train_ms": [], "step_ms": {}, "refill_ms": {}}
+    seen = []
+    raw_train = trainer.step
+
+    def train_step(*a, **k):
+        _sync(dev)
+        t0 = time.perf_counter()
+        m = raw_train(*a, **k)
+        _sync(dev)
+        rec["train_ms"].append((time.perf_counter() - t0) * 1e3)
+        snaps[trainer.version] = whole(trainer.params)
+        return m
+
+    def wrap(i, eng):
+        raw_step, raw_refill = eng.step, eng.refill
+        rec["step_ms"][i], rec["refill_ms"][i] = [], []
+
+        def step(*a, **k):
+            t0 = time.perf_counter()
+            done = raw_step(*a, **k)
+            _sync(dev)
+            rec["step_ms"][i].append((time.perf_counter() - t0) * 1e3)
+            seen.extend(done)
+            return done
+
+        def refill(*a, **k):
+            t0 = time.perf_counter()
+            n = raw_refill(*a, **k)
+            _sync(dev)
+            rec["refill_ms"][i].append((time.perf_counter() - t0) * 1e3)
+            return n
+
+        eng.step, eng.refill = step, refill
+
+    trainer.step = train_step
+    for i, eng in enumerate(p.engines):
+        wrap(i, eng)
+    fired, raw_loop_step = [], p.loop.step
+
+    def loop_step():
+        ok = raw_loop_step()
+        if ok:
+            fired.append(p.loop.now)
+        return ok
+
+    p.loop.step = loop_step
+    g0 = dict(STAGED)
+    ops.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    log = p.run()
+    _sync(dev)
+    run_s = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    for eng in p.engines:
+        del eng.step, eng.refill
+    del trainer.step, p.loop.step
+    engines = []
+    for i, eng in enumerate(p.engines):
+        ranks = [int(r) for r in eng.mesh.mesh.reshape(-1)]
+        params_equal = None
+        if eng._runs:
+            mine = whole(eng.params)
+            params_equal = all(torch.equal(a, b) for a, b in
+                               zip(mine, snaps[eng.version]))
+            del mine
+        engines.append({
+            "ranks": ranks, "runs": eng._runs, "version": eng.version,
+            "params_equal_trainer_version": params_equal,
+            "steps": len(rec["step_ms"][i]),
+            "prefill_invocations": eng.prefill_invocations,
+            "prompt_prefills": eng.prompt_prefills,
+            "prefix_forks": eng.prefix_forks,
+            "lockstep": dict(eng.lockstep),
+            "broadcasts_per_step": (eng.lockstep["broadcasts"]
+                                    / max(len(rec["step_ms"][i]), 1)),
+            "step_ms_median": (statistics.median(rec["step_ms"][i])
+                               if rec["step_ms"][i] else None),
+            "refill_ms_total": sum(rec["refill_ms"][i]),
+            "tokens_generated": eng.tokens_generated})
+    bs = p.broadcast_stats()
+    sizes = span_bytes(tree_flatten(trainer.params)[0],
+                       chunk_spans(tree_flatten(trainer.params)[0],
+                                   MESH_CHUNKS))
+    stamps_ok = all((np.diff(r.weight_versions) >= 0).all()
+                    and int(r.weight_versions.max()) <= trainer.version
+                    for r in seen)
+    res = {"log": [{k: (float(v) if isinstance(v, (float, np.floating))
+                        else v) for k, v in r.items()} for r in log],
+           "fired": fired, "rollouts": len(seen),
+           "stream": _mesh_digest(seen), "stamps_ok": stamps_ok,
+           "trainer_version": trainer.version,
+           "devices": [list(a.devices) for a in p.actors],
+           "engines": engines, "launches": launches, "run_s": run_s,
+           "train_ms": rec["train_ms"],
+           "broadcast": {k: v for k, v in bs.items() if k != "engines"},
+           "exec_records": [{"engine": r["engine"], "version": r["version"],
+                             "nbytes": r["nbytes"], "seconds": r["seconds"],
+                             "per_chunk": r["per_chunk"]}
+                            for r in p.broadcaster.exec_records],
+           "chunk_bytes": sizes,
+           "loss_route": _loss_route(cfg, world),
+           "gathers": STAGED["gathers"] - g0["gathers"],
+           "gather_bytes": STAGED["bytes"] - g0["bytes"],
+           "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                            if dev.type == "cuda" else None)}
+    del snaps
+    return res
+
+
+def _loss_route(cfg, mesh) -> str:
+    """Which fused-loss route the mesh trainer takes: vocab-parallel when
+    the head's vocab divides the axis its rule names, else the whole head
+    on every rank (`kernels/sharded.py`)."""
+    from repro_torch.kernels.sharded import vocab_shard_count
+    from repro_torch.sharding import DEFAULT_RULES
+    key = "p_embed_vocab" if cfg.tie_embeddings else "p_vocab"
+    n = vocab_shard_count(mesh, DEFAULT_RULES[key], cfg.vocab_size)
+    if n > 1:
+        return f"vocab-parallel over {n} shards of {cfg.vocab_size // n}"
+    return (f"replicated head: vocab {cfg.vocab_size} does not divide "
+            f"{mesh.size()} ranks, each runs the whole fused loss")
+
+
+def _mesh_weight_update(cfg, dev) -> dict:
+    """`execute_weight_update` on the four ranks as a (2, 2) ("data",
+    "model") mesh: the trainer layout (FSDP over "data", tensor parallel
+    over "model") to the generation layout, in MESH_CHUNKS chunks."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch.steps import execute_weight_update
+
+    mesh = DeviceMesh(dev.type, torch.arange(MESH_WORLD).reshape(2, 2),
+                      mesh_dim_names=("data", "model"))
+    recs = execute_weight_update(cfg, mesh, n_chunks=MESH_CHUNKS,
+                                 max_bytes=16 << 30)
+    return {"chunks": recs,
+            "sum_t_exec_s": sum(r["t_exec_s"] for r in recs),
+            "nbytes": sum(r["nbytes"] for r in recs)}
+
+
+def _mesh_rank(rank: int, port: int, out_dir: str, device: str,
+               n_layers: int, overrides: dict) -> None:
+    import dataclasses
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch import get_config
+    from repro_torch.launch.mesh import engine_submeshes
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=MESH_WORLD,
+                            timeout=datetime.timedelta(minutes=10))
+    dev = torch.device(device)
+    res: dict = {"rank": rank}
+    try:
+        cfg = dataclasses.replace(get_config("granite-3-2b"),
+                                  fused_loss=True, remat=True,
+                                  n_layers=n_layers, **overrides)
+        world = DeviceMesh(device, torch.arange(MESH_WORLD),
+                           mesh_dim_names=("model",))
+        subs = engine_submeshes(world, 2)
+        eng = _mesh_engine_check(cfg, subs[0], rank, dev)
+        res["cosim"] = _mesh_cosim(eng.pop("_engine"), cfg, dev)
+        res["engine"] = eng
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        res["pipeline"] = _mesh_pipeline(cfg, world, rank, dev)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        res["weight_update"] = _mesh_weight_update(cfg, dev)
+        res["peak_mem_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                               if dev.type == "cuda" else None)
+    except Exception as e:  # reported by the parent, which fails the phase
+        res["error"] = f"{type(e).__name__}: {e}"
+        res["traceback"] = traceback.format_exc()[-3000:]
+    finally:
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump(res, f, default=_plain)
+        dist.destroy_process_group()
+
+
+def _plain(x):
+    """numpy scalars and tuples for `json.dump`."""
+    return x.item() if hasattr(x, "item") else str(x)
+
+
+def _mesh_update_model(cfg) -> list:
+    """The dry-run's per-chunk `t_collective_s` of the same weight update:
+    the step traced on meta tensors over a fake process group of four
+    ranks as the (2, 2) mesh, in this process (the group is destroyed
+    after)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import _mesh, fake_world
+    from repro_torch.launch.steps import lower_weight_update
+    from repro_torch.roofline.analysis import analyze
+
+    fake_world(MESH_WORLD)
+    try:
+        mesh = _mesh(torch.arange(MESH_WORLD).reshape(2, 2),
+                     ("data", "model"))
+        return [analyze(p.name, p, MESH_WORLD).row()["t_collective_s"]
+                for p in lower_weight_update(cfg, mesh, MESH_CHUNKS)]
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_checks(ranks, n_layers: int, device, n_spans: int,
+                 n_bytes: int) -> list:
+    """Every check of the mesh phase over the ranks' results; the weight
+    update must come in `n_spans` chunks of `n_bytes` in all."""
+    bad = []
+    for r in ranks:
+        if "error" in r:
+            bad.append(f"rank {r['rank']}: {r['error']}\n{r['traceback']}")
+    if bad:
+        return bad
+    first = ranks[0]
+    e32 = first["engine"]["float32"]
+    if e32["first_difference"] is not None:
+        bad.append(f"float32 mesh engine tokens differ from the one-rank "
+                   f"engine's: {e32['first_difference']}")
+    for r in ranks:
+        k = r["rank"]
+        for name in ("float32", "bfloat16", "bfloat16_no_gather"):
+            if r["engine"][name]["rollouts"] != \
+                    first["engine"][name]["rollouts"]:
+                bad.append(f"rank {k}: {name} engine rollouts differ "
+                           f"from rank 0's")
+        rep = r["cosim"]["replay"]
+        rel = abs(rep["sim_total_s"] - rep["measured_total_s"]) \
+            / max(rep["measured_total_s"], 1e-12)
+        prel = abs(rep["sim_pause_per_update"]
+                   - rep["measured_pause_per_update"]) \
+            / max(rep["measured_pause_per_update"], 1e-12)
+        if not (rel < 0.05 and prel <= 0.05
+                and rep["updates_sim"] == rep["updates_measured"] == 2
+                and abs(rep["mean_lag_sim"] - rep["mean_lag_measured"])
+                <= 0.5 and rep["sim_pause_per_update"] > 0):
+            bad.append(f"rank {k} co-sim: {rep}")
+        p = r["pipeline"]
+        for key in ("log", "fired", "stream", "rollouts", "trainer_version",
+                    "devices"):
+            if p[key] != first["pipeline"][key]:
+                bad.append(f"rank {k}: pipeline {key} differs from rank 0's")
+        if [e["lockstep"] for e in p["engines"]] != \
+                [e["lockstep"] for e in first["pipeline"]["engines"]]:
+            bad.append(f"rank {k}: lockstep counts differ from rank 0's")
+        if [x["version"] for x in p["log"]] != [1, 2, 3] \
+                or p["trainer_version"] != 3 \
+                or not all(np.isfinite(x["loss"]) for x in p["log"]):
+            bad.append(f"rank {k}: optimizer steps {p['log']}")
+        if p["broadcast"]["executed"] < 1:
+            bad.append(f"rank {k}: no executed publication")
+        if not p["stamps_ok"]:
+            bad.append(f"rank {k}: version stamps decrease or run ahead")
+        if set(p["devices"][0]) & set(p["devices"][1]):
+            bad.append(f"rank {k}: the actors' ranks overlap")
+        mine = [e for e in p["engines"] if e["runs"]]
+        if [e["ranks"] for e in mine] != [[0, 1] if k < 2 else [2, 3]]:
+            bad.append(f"rank {k} runs engines {mine}")
+        for e in mine:
+            if e["version"] < 1 or not e["params_equal_trainer_version"]:
+                bad.append(f"rank {k}: engine on {e['ranks']} at version "
+                           f"{e['version']} does not hold the trainer's "
+                           f"parameters of that version bit for bit")
+            want = {"flash_decode_paged": n_layers * e["steps"],
+                    "prefill_attention": n_layers
+                    * e["prefill_invocations"],
+                    "fused_logprob_fwd": 3, "fused_logprob_bwd": 3,
+                    "flash_decode": 0, "flash_attention": 0, "ssd_scan": 0}
+            if device == "cuda" and p["launches"] != want:
+                bad.append(f"rank {k} launches {p['launches']}, "
+                           f"expected {want}")
+        wu = r["weight_update"]
+        if len(wu["chunks"]) != n_spans or wu["nbytes"] != n_bytes \
+                or not all(c["t_exec_s"] > 0 for c in wu["chunks"]):
+            bad.append(f"rank {k}: weight update {wu}, expected {n_spans} "
+                       f"chunks of {n_bytes} bytes in all")
+    return bad
+
+
+def phase_mesh(gpu: str, n_layers: int, device="cuda",
+               overrides=None) -> dict:
+    """The executed multi-rank runtime: four gloo ranks on cuda:0 (NCCL
+    refuses two ranks on one card; gloo stages each collective through
+    host memory, and its gathers take the process group's all-gather,
+    `shardctx.redistribute`), granite-3-2b at published widths in bfloat16
+    cut to `n_layers`: the engine check, `PipelineRL(mesh=)` on two paged
+    engines, the co-sim and `execute_weight_update` beside the dry-run's
+    `t_collective_s`. A CPU run (`device="cpu"` with `overrides` making the
+    config small) rehearses the phase's logic and measures nothing."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    out_dir = tempfile.mkdtemp(prefix="mesh_")
+    overrides = dict(overrides or {})
+    emit({"phase": "mesh", "gpu": gpu, "note": "granite-3-2b cut",
+          "n_layers": n_layers, "published_layers": 40,
+          "overrides": {k: str(v) for k, v in overrides.items()}})
+    t0 = time.time()
+    mp.spawn(_mesh_rank, args=(port, out_dir, device, n_layers, overrides),
+             nprocs=MESH_WORLD, join=True)
+    wall = time.time() - t0
+    ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+             for r in range(MESH_WORLD)]
+    import dataclasses
+
+    from repro_torch import get_config
+    from repro_torch.core.weights import chunk_spans, tree_flatten
+    from repro_torch.launch.steps import abstract_params
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=n_layers,
+                              **overrides)
+    model_t = _mesh_update_model(cfg)
+    leaves = [a.value for a in tree_flatten(abstract_params(cfg))[0]]
+    bad = _mesh_checks(ranks, n_layers, device,
+                       len(chunk_spans(leaves, MESH_CHUNKS)),
+                       sum(x.numel() * x.element_size() for x in leaves))
+    first = ranks[0]
+    res = {"phase": "mesh", "gpu": gpu, "wall_s": wall,
+           "n_layers": n_layers, "world": MESH_WORLD,
+           "gather_route": "c10d all_gather_into_tensor on gloo (host "
+                           "staged); DTensor's functional all-gather "
+                           "crashes on CUDA tensors",
+           "launches": first.get("pipeline", {}).get("launches", {}),
+           "launches_per_rank": [r.get("pipeline", {}).get("launches")
+                                 for r in ranks],
+           "weight_update_model_t_collective_s": model_t,
+           "ranks": [{k: v for k, v in r.items()
+                      if k not in ("traceback",)} for r in ranks]}
+    for r in res["ranks"]:
+        p = r.get("pipeline")
+        if p:
+            p["log_len"] = len(p.pop("log"))
+            p["fired_len"] = len(p.pop("fired"))
+    return _finish("mesh", res, bad)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the launch CLI on the card
 # ---------------------------------------------------------------------------
 
 LAUNCH_ARGS = ["--steps", "4", "--fused-loss", "--max-len", "64",
@@ -3656,13 +4258,15 @@ def summary(kernels: list, paths: dict, gpu: str) -> list:
 
 def release_memory(after: str, gpu: str) -> None:
     """Return the dropped path's cached blocks to the card and report what
-    is still allocated. No garbage collection: a path's objects are freed
+    is still allocated, and the seconds since the script started (so
+    consecutive lines give each phase's wall time). No garbage collection: a path's objects are freed
     by reference counting when its phase returns (a `PipelineRL` holds no
     reference cycle), so what remains allocated is what is still live."""
     torch.cuda.empty_cache()
     emit({"phase": "release", "after": after, "gpu": gpu,
           "memory_allocated": torch.cuda.memory_allocated(),
-          "memory_reserved": torch.cuda.memory_reserved()})
+          "memory_reserved": torch.cuda.memory_reserved(),
+          "at_s": time.perf_counter() - T_START})
 
 
 def main(argv=None) -> int:
@@ -3689,6 +4293,9 @@ def main(argv=None) -> int:
                          "published; 2 run one dense and one MoE layer)")
     ap.add_argument("--server-layers", type=int, default=32,
                     help="llama3-8b depth in the server phase")
+    ap.add_argument("--mesh-layers", type=int, default=4,
+                    help="granite-3-2b depth in the mesh phase (40 "
+                         "published)")
     ap.add_argument("--faults-layers", type=int, default=2,
                     help="granite-3-2b depth in the faults phase (40 "
                          "published; a checkpoint of 2 layers is ~3.2 GB)")
@@ -3732,6 +4339,7 @@ def _run_phases(args, phases, gpu, dry, dry_out) -> int:
         kernels = phase_kernels(gpu)
         kernels += phase_fused(gpu, (torch.float32, torch.bfloat16))
         kernels += phase_ssd(gpu)
+        release_memory("kernels", gpu)
     # each path runs with the launch counts set to 0 just before it and
     # read just after (the phases reset and report them); a path's device
     # memory is freed when its phase returns
@@ -3765,6 +4373,9 @@ def _run_phases(args, phases, gpu, dry, dry_out) -> int:
     if "sharded" in phases:
         paths["sharded"] = phase_sharded(gpu)
         release_memory("sharded", gpu)
+    if "mesh" in phases:
+        paths["mesh"] = phase_mesh(gpu, args.mesh_layers)
+        release_memory("mesh", gpu)
     if "launch" in phases:
         paths["launch"] = phase_launch(gpu)
         release_memory("launch", gpu)

@@ -3,9 +3,9 @@ pipeline's stages post callbacks against a shared simulated clock and
 react to each other's completions. `PipelineRL` and `ConventionalRL` are
 configurations of the same stage library, and so is the request `Server`
 (`core/serving.py`). A port of the JAX package's `core/events.py` driving
-the port's engines, Preprocessor and Trainer, with its fault injection;
-only the real-mesh broadcast executor is not ported (ROADMAP.md queue
-A.7e).
+the port's engines, Preprocessor and Trainer, with its fault injection
+and the real-mesh broadcast executor (`WeightBroadcaster(executor=)`,
+`launch/meshrt.py`).
 
   ActorStage        owns one `GenerationEngine`; self-schedules decode
                     ticks; at each tick boundary it first installs any
@@ -726,7 +726,8 @@ class ActorStage:
                        recompute_kv: Optional[bool] = None,
                        tokens: Optional[Sequence[Optional[int]]] = None,
                        n_chunks: Optional[int] = None,
-                       digest: Optional[int] = None) -> None:
+                       digest: Optional[int] = None,
+                       chunk_leaves=None) -> None:
         """Chunked publication: chunk k arrives at arrivals[k]; each
         install pauses decode `install_pause`; pointer-swap after the
         last. While a stream is in flight, a new publication *waits* (the
@@ -739,7 +740,8 @@ class ActorStage:
         transmission k; the engine recomputes it from its own span table
         and rejects mismatches without touching the shadow buffer.
         `digest` is the whole-publication checksum verified before the
-        pointer swap."""
+        pointer swap. `chunk_leaves` carries the span buffers an executor
+        placed on the engine's mesh straight through to the engine."""
         if self.failed:
             return
         rk = self.recompute_kv if recompute_kv is None else recompute_kv
@@ -749,14 +751,16 @@ class ActorStage:
             self._next_stream = (params, version, list(arrivals),
                                  install_pause, per_tick, rk,
                                  list(tokens) if tokens is not None else None,
-                                 n_chunks, digest)
+                                 n_chunks, digest, chunk_leaves)
             if arrivals:
                 self._lag_unpark(list(arrivals)[-1])
             return
         nc = len(arrivals) if n_chunks is None else int(n_chunks)
+        # the keyword only when set: stand-in engines take the plain call
+        kw = {} if chunk_leaves is None else {"chunk_leaves": chunk_leaves}
         sizes = self.engine.begin_weight_stream(
             params, version, n_chunks=nc, recompute_kv=rk,
-            expect_digest=digest)
+            expect_digest=digest, **kw)
         self._stream = dict(version=version, arrivals=deque(arrivals),
                             tokens=(deque(tokens) if tokens is not None
                                     else None),
@@ -815,7 +819,8 @@ class ActorStage:
                                             per_tick=nxt[4],
                                             recompute_kv=nxt[5],
                                             tokens=nxt[6], n_chunks=nxt[7],
-                                            digest=nxt[8])
+                                            digest=nxt[8],
+                                            chunk_leaves=nxt[9])
                     break
         self.pause_total += pause
         return pause
@@ -2000,7 +2005,8 @@ class WeightBroadcaster:
                  mode: str = "streamed", n_chunks: int = 8,
                  fault_plan: Optional["FaultPlan"] = None,
                  retransmit_backoff_chunks: float = 1.0,
-                 backoff_cap_chunks: float = 16.0):
+                 backoff_cap_chunks: float = 16.0,
+                 executor=None):
         if mode not in ("free", "atomic", "streamed"):
             raise ValueError(f"unknown broadcast mode {mode!r}")
         self.hw, self.actors, self.mode = hw, list(actors), mode
@@ -2008,6 +2014,13 @@ class WeightBroadcaster:
         self.fault_plan = fault_plan
         self.retransmit_backoff_chunks = retransmit_backoff_chunks
         self.backoff_cap_chunks = backoff_cap_chunks
+        # execution backend (`launch.meshrt.MeshBroadcastExecutor`): a
+        # streamed publication to a mesh-placed engine is placed on the
+        # engine's mesh chunk span by chunk span at publish time, measured,
+        # and the engine installs those buffers; the arrival arithmetic is
+        # untouched, so the simulated timeline stays the same
+        self.executor = executor
+        self.exec_records: List[Dict[str, Any]] = []
         self.published = 0
         self.bytes_published = 0
         self.chunks_lost = 0
@@ -2099,10 +2112,21 @@ class WeightBroadcaster:
                             for k in range(self.n_chunks)]
                 tokens = [good[k] if k < len(good) else None
                           for k in range(self.n_chunks)]
+            ck = None
+            if (self.executor is not None
+                    and getattr(a.engine, "_pshard_leaves", None)
+                    is not None):
+                rec = self.executor.run(a.engine, params, version,
+                                        self.n_chunks)
+                ck = rec["chunks"]
+                self.exec_records.append({
+                    "engine": a.name, "version": version,
+                    "nbytes": rec["nbytes"], "seconds": rec["seconds"],
+                    "per_chunk": rec["per_chunk"]})
             a.deliver_stream(params, version, arrivals,
                              install_pause=self.hw.bcast_install_flash,
                              tokens=tokens, n_chunks=self.n_chunks,
-                             digest=digest)
+                             digest=digest, chunk_leaves=ck)
 
     def stats(self) -> Dict[str, Any]:
         per_engine = []
@@ -2121,6 +2145,8 @@ class WeightBroadcaster:
         return {
             "mode": self.mode,
             "published": self.published,
+            "executed": len(self.exec_records),
+            "exec_seconds": sum(r["seconds"] for r in self.exec_records),
             "bytes_published": self.bytes_published,
             "chunks_lost": self.chunks_lost,
             "chunks_corrupt": self.chunks_corrupt,

@@ -27,8 +27,13 @@ whose heap holds the stages, which hold the engines and the trainer. No
 callback refers back to `PipelineRL` strongly (the fault events too), so a
 dropped pipeline frees its device memory by reference counting.
 
-Mesh placement (`mesh`, `rules`) is not ported yet (ROADMAP.md queue
-A.7e).
+`mesh=` runs the pool on a `DeviceMesh`: the trainer keeps the train
+layout on `mesh`, each engine owns a disjoint 1-D submesh
+(`launch.mesh.engine_submeshes`; the whole mesh when the ranks do not split
+evenly), and streamed publications are executed per-chunk transfers
+(`launch.meshrt.MeshBroadcastExecutor`). Every rank of the process group
+runs this same host program; the engines' lockstep broadcasts keep every
+rank's decisions, log and rollouts equal.
 """
 from __future__ import annotations
 
@@ -127,13 +132,20 @@ class PipelineRL:
                  preprocessor=None,
                  prompt_source: Optional[Callable] = None,
                  fault_plan=None, mesh=None, rules=None, device="cuda"):
-        for name, arg in (("mesh", mesh), ("rules", rules)):
-            if arg is not None:
-                raise NotImplementedError(
-                    f"PipelineRL({name}=...): mesh placement is not ported "
-                    f"yet (ROADMAP.md queue A.7e)")
         self.device = resolve_device(device)
         self.cfg, self.task, self.ec, self.pc, self.hw = cfg, task, ec, pc, hw
+        self.mesh, self.rules = mesh, rules
+        self._engine_meshes: Optional[List] = None
+        if mesh is not None:
+            from repro_torch.launch.mesh import engine_submeshes
+            n_eng = max(int(pc.n_engines), 1)
+            try:
+                self._engine_meshes = engine_submeshes(mesh, n_eng)
+            except ValueError:
+                self._engine_meshes = [mesh] * n_eng
+            if trainer is None:
+                trainer = Trainer(cfg, params, device=self.device, mesh=mesh,
+                                  rules=rules)
         self.trainer = trainer or Trainer(cfg, params, device=self.device)
         self.preprocessor = preprocessor  # paper Fig. 4 middle stage
         self.queue = SampleQueue(pc.queue_maxsize)
@@ -220,9 +232,13 @@ class PipelineRL:
         self.actors: List[ActorStage] = [
             self._make_actor(i, eng, speeds[i])
             for i, eng in enumerate(self.engines)]
+        executor = None
+        if mesh is not None and pc.broadcast == "streamed":
+            from repro_torch.launch.meshrt import MeshBroadcastExecutor
+            executor = MeshBroadcastExecutor()
         self.broadcaster = WeightBroadcaster(
             hw, self.actors, mode=pc.broadcast, n_chunks=pc.broadcast_chunks,
-            fault_plan=fault_plan)
+            fault_plan=fault_plan, executor=executor)
         self.trainer_stage.broadcaster = self.broadcaster
         # watchdog: hang and straggler detection over the pool; a detected
         # hang escalates through fail/salvage/requeue, and repeat-offender
@@ -243,11 +259,20 @@ class PipelineRL:
             self._schedule_faults(fault_plan)
 
     def _make_engine(self, i: int) -> GenerationEngine:
-        """Pool engine i, on the trainer's parameter tensors."""
+        """Pool engine i, on the trainer's parameter tensors (placed on its
+        own submesh with a mesh)."""
         return GenerationEngine(self.cfg, self.trainer.params, self.ec,
                                 self.router.source_for(i),
                                 seed=self.seed + 1009 * i,
-                                device=self.device)
+                                device=self.device,
+                                mesh=self._engine_mesh(i), rules=self.rules)
+
+    def _engine_mesh(self, i: int):
+        """Submesh of pool engine i (None without a mesh). Elastic joiners
+        beyond the configured pool reuse the last submesh."""
+        if self._engine_meshes is None:
+            return None
+        return self._engine_meshes[min(i, len(self._engine_meshes) - 1)]
 
     def _make_actor(self, i: int, eng: GenerationEngine,
                     speed: float) -> ActorStage:
@@ -264,6 +289,9 @@ class PipelineRL:
             page_cost=m.page_touch_time,
             deliver=self._deliver, recompute_kv=self.pc.recompute_kv,
             lag_gate=self.lag_gate)
+        # real-mesh pool: the stage advertises the ranks it owns
+        a.devices = (tuple(int(r) for r in eng.mesh.mesh.reshape(-1))
+                     if eng.mesh is not None else None)
         plan = self.fault_plan
         if plan is not None and plan.has_slowdown_faults():
             # gray degradation (§10): the plan's windows scale this

@@ -26,11 +26,26 @@ machine under either setting, admission costing 0 pages. A hybrid config
 pages its attention leaves and keeps its conv and SSD rows per slot: a
 fork takes the leader's pages and a copy of its post-prefill rows. An MLA
 config's attention leaves are its latent `c_kv` and rope key `k_rope`.
+
+`mesh=` places the engine on a `DeviceMesh` (the JAX package's real-mesh
+engine): the parameters take the generation layout of their logical axes
+(`sharding.tree_shardings`), the slot cache follows `CACHE_LOGICAL`, and
+the page pool and the scheduling vectors are replicated (each rank of the
+mesh holds a whole copy); every model call runs under
+`shardctx.sharding_context`. torch is multi-controller: every rank of the
+process group runs the same host program, so a rank outside the engine's
+mesh keeps the engine's host bookkeeping and runs none of its device work,
+and each decode step's host-visible outputs (the `finished` mask, the
+finished rows' tokens and logprobs) are broadcast over the whole group
+from the mesh's first rank, so that every rank reaches the same decisions
+(`lockstep`).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -40,14 +55,15 @@ from repro_torch.configs.base import (ModelConfig, effective_cache_len,
                                       kv_cache_specs, paged_cache_specs,
                                       paged_layout)
 from repro_torch.core.weights import (chunk_spans, chunk_token, span_bytes,
-                                      stream_digest, tree_flatten,
+                                      stream_digest, tree_bytes, tree_flatten,
                                       tree_unflatten)
 from repro_torch.data.math_task import MathTask, Problem
 from repro_torch.data.packing import Rollout
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels.paged_cache import (BlockTables, OutOfPages,
                                              PageAllocator)
 from repro_torch.models import model as M
+from repro_torch.shardctx import full, is_distributed
 
 
 @dataclasses.dataclass
@@ -165,7 +181,8 @@ def _engine_step(params, st: Dict[str, Any], cfg: ModelConfig,
     out = M.decode_step(params, cur_tok, positions, st["cache"], n_cached,
                         cfg, ring=False, block_tables=block_tables,
                         paged_kernel=ec.paged_attention == "kernel")
-    logits = out["logits"][:, 0] / max(ec.temperature, 1e-6)
+    # on a mesh the logits are gathered whole: sampling is host-visible
+    logits = full(out["logits"])[:, 0] / max(ec.temperature, 1e-6)
     logp = torch.log_softmax(logits.float(), dim=-1)
 
     # Gumbel-max draw on the engine's generator (the same law as
@@ -243,11 +260,14 @@ def _recompute_impl_paged(params, st: Dict[str, Any], block_tables,
 class GenerationEngine:
     """H-slot continuous-batching engine (Algorithm 2, Actor). Runs on the
     card unless `device="cpu"` is asked for; `params` must already live on
-    that device (`models.model.init_params`, `convert.params_from_numpy`)."""
+    that device (`models.model.init_params`, `convert.params_from_numpy`).
+    `mesh`/`rules` place it on a DeviceMesh (module docstring); the
+    parameters given may then be plain tensors (the same on every rank) or
+    distributed ones on any mesh of the group (the trainer's)."""
 
     def __init__(self, cfg: ModelConfig, params, ec: EngineConfig,
                  prompt_source: Callable[[], Optional[Problem]],
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", mesh=None, rules=None):
         self.device = resolve_device(device)
         if ec.cache not in ("slots", "paged"):
             raise ValueError(f"EngineConfig.cache: {ec.cache!r}")
@@ -255,6 +275,24 @@ class GenerationEngine:
             raise ValueError(
                 f"EngineConfig.paged_attention: {ec.paged_attention!r}")
         self.cfg, self.ec = cfg, ec
+        # real-mesh placement: each leaf's placements on `mesh`, in
+        # `tree_flatten` order; executed transfers land in `wexec_log`:
+        # {"kind": "atomic"|"chunk", "version", "k", "nbytes", "seconds"}
+        self.mesh, self.rules = mesh, rules
+        self._pshard_leaves: Optional[List[Any]] = None
+        self.wexec_log: List[Dict[str, Any]] = []
+        # the host outputs broadcast to every rank: calls and bytes
+        self.lockstep = {"broadcasts": 0, "bytes": 0}
+        self._runs = True         # this rank runs the engine's device work
+        if mesh is not None:
+            from repro_torch.launch.steps import abstract_params
+            from repro_torch.sharding import placements_for, spec_for
+            self._runs = mesh.get_coordinate() is not None
+            self._src = int(mesh.mesh.reshape(-1)[0])
+            self._pshard_leaves = [
+                placements_for(spec_for(a, mesh, rules), mesh)
+                for a in tree_flatten(abstract_params(cfg))[0]]
+            params = self._place(params)
         self._check_params(params)
         self.params = params      # behavior weights μ
         self.version = 0          # trainer version of μ
@@ -284,10 +322,15 @@ class GenerationEngine:
                     f"({nb} blocks + trash page)")
             self.allocator = PageAllocator(n_pages, ps)
             self.tables = BlockTables(H, nb, self.allocator)
-            self._bt = torch.zeros((H, nb), dtype=torch.int32, device=dev)
-            cache = _zero_paged_cache(cfg, H, T, n_pages, ps, dev)
+            if self._runs:
+                self._bt = torch.zeros((H, nb), dtype=torch.int32,
+                                       device=dev)
+            cache = (_zero_paged_cache(cfg, H, T, n_pages, ps, dev)
+                     if self._runs else None)
         else:
-            cache = _zero_cache(cfg, H, T, dev)
+            cache = _zero_cache(cfg, H, T, dev) if self._runs else None
+        if mesh is not None and self._runs and not self._paged:
+            cache = self._place_cache(cache)
         self.state: Dict[str, Any] = {
             "tokens": torch.zeros((H, T), dtype=torch.long, device=dev),
             "lp": torch.zeros((H, T), dtype=torch.float32, device=dev),
@@ -295,7 +338,7 @@ class GenerationEngine:
             "prompt_len": torch.ones((H,), dtype=torch.long, device=dev),
             "active": torch.zeros((H,), dtype=torch.bool, device=dev),
             "cache": cache,
-        }
+        } if self._runs else {}
         # host-side bookkeeping
         self.problems: List[Optional[Problem]] = [None] * H
         self.ver_buf = np.zeros((H, T), np.int32)
@@ -314,8 +357,7 @@ class GenerationEngine:
             self._cache_len = self.tables.n_blocks * self.allocator.page_size
             assert self._cache_len == effective_cache_len(cfg, T)
         elif cfg.has_attention:
-            self._cache_len = self.state["cache"][
-                _attention_leaves(self.state["cache"])[0]].shape[2]
+            self._cache_len = effective_cache_len(cfg, T)
         # the effective chunk divides T (chunk windows never cross the
         # token buffer end), the cache length (ring writes stay contiguous)
         # and, paged, the page size (a chunk lands in one logical block)
@@ -352,35 +394,118 @@ class GenerationEngine:
 
     def _check_params(self, params) -> None:
         for leaf in tree_flatten(params)[0]:
-            if leaf.device != self.device:
-                raise ValueError(f"params on {leaf.device}, engine on "
+            dev = leaf.to_local().device if is_distributed(leaf) \
+                else leaf.device
+            if dev != self.device:
+                raise ValueError(f"params on {dev}, engine on "
                                  f"{self.device}")
+
+    # ----- device placement (real mesh) ---------------------------------
+    def _ctx(self):
+        """The sharding context of every model call: none without a mesh,
+        so the single-device engine is untouched."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from repro_torch.shardctx import sharding_context
+        return sharding_context(self.mesh, self.rules)
+
+    def _place_leaves(self, leaves, placements) -> List[Any]:
+        """Leaves onto this engine's mesh: one already there in its
+        placement is kept; one on another mesh is gathered whole (a
+        collective over its own mesh, which every rank of that mesh joins)
+        and each rank of the engine's mesh keeps its own block of the
+        copy, with no further traffic; a whole tensor is scattered from
+        the mesh's first rank. A rank outside the mesh keeps an empty
+        block."""
+        from repro_torch.sharding import distribute
+        out = []
+        for x, pl in zip(leaves, placements):
+            if not is_distributed(x):
+                out.append(distribute(x, self.mesh, pl))
+            elif (x.device_mesh == self.mesh
+                    and tuple(x.placements) == tuple(pl)):
+                out.append(x)
+            else:
+                out.append(distribute(full(x), self.mesh, pl,
+                                      src_data_rank=None))
+        return out
+
+    def _place(self, params):
+        leaves, treedef = tree_flatten(params)
+        return tree_unflatten(treedef, self._place_leaves(
+            leaves, self._pshard_leaves))
+
+    def _place_cache(self, cache):
+        """Slot-cache leaves split by `CACHE_LOGICAL` through the rules (a
+        leaf without logical axes stays replicated: a plain tensor)."""
+        from repro_torch.configs.base import CACHE_LOGICAL
+        from repro_torch.sharding import (distribute, logical_to_spec,
+                                          placements_for)
+        out = {}
+        for k, v in cache.items():
+            if k not in CACHE_LOGICAL:
+                out[k] = v
+                continue
+            pl = placements_for(logical_to_spec(
+                CACHE_LOGICAL[k], v.shape, self.mesh, self.rules), self.mesh)
+            out[k] = distribute(v, self.mesh, pl)
+        return out
+
+    def _lockstep(self, t: Optional[torch.Tensor], shape, dtype):
+        """The mesh's first rank's `t` on every rank of the group, as numpy:
+        one broadcast over the whole group (a rank outside the mesh passes
+        None and receives)."""
+        import torch.distributed as dist
+        buf = (t.contiguous() if t is not None
+               else torch.zeros(shape, dtype=dtype, device=self.device))
+        dist.broadcast(buf, src=self._src)
+        self.lockstep["broadcasts"] += 1
+        self.lockstep["bytes"] += buf.numel() * buf.element_size()
+        return buf.cpu().numpy()
 
     # ----- weights -----------------------------------------------------
     @torch.no_grad()
-    def set_weights(self, params, version: int,
-                    recompute_kv: bool = False) -> None:
+    def set_weights(self, params, version: int, recompute_kv: bool = False,
+                    _placed: bool = False) -> None:
         """In-flight weight update: swap μ, keep the (stale) KV cache.
         recompute_kv=True reproduces the paper's §5.1 ablation (recompute
         the cache of in-progress sequences under the new weights). An
-        atomic swap supersedes any weight stream in progress."""
+        atomic swap supersedes any weight stream in progress.
+
+        On a mesh engine the swap is an executed transfer: the tree is
+        placed on this engine's mesh and the measured seconds (with a
+        device sync) land in `wexec_log`; `_placed=True` skips that when
+        the buffers already are (the last chunk of a stream)."""
+        if self.mesh is not None and not _placed:
+            t0 = time.perf_counter()
+            params = self._place(params)
+            synchronize(self.device)
+            self.wexec_log.append({
+                "kind": "atomic", "version": int(version), "k": -1,
+                "nbytes": tree_bytes(params),
+                "seconds": time.perf_counter() - t0})
         self._check_params(params)
         self._wstream = None
         self.params = params
         self.version = version
-        if recompute_kv:
-            if self._paged:
-                # the scatter overwrites every position of every referenced
-                # page, which must not clobber a page other forks still read
-                self._unshare_all()
-                self._sync_tables()
-                _recompute_impl_paged(params, self.state, self._bt, self.cfg)
-            else:
-                _recompute_impl(params, self.state, self.cfg)
+        if recompute_kv and self._runs:
+            with self._ctx():
+                if self._paged:
+                    # the scatter overwrites every position of every
+                    # referenced page, which must not clobber a page other
+                    # forks still read
+                    self._unshare_all()
+                    self._sync_tables()
+                    _recompute_impl_paged(params, self.state, self._bt,
+                                          self.cfg)
+                else:
+                    _recompute_impl(params, self.state, self.cfg)
 
     def begin_weight_stream(self, params, version: int, n_chunks: int = 8,
                             recompute_kv: bool = False,
-                            expect_digest: Optional[int] = None) -> List[int]:
+                            expect_digest: Optional[int] = None,
+                            chunk_leaves: Optional[List[List[Any]]] = None
+                            ) -> List[int]:
         """Streamed in-flight broadcast: stage the new param tree into a
         shadow buffer chunk by chunk between decode steps via
         `stream_weight_chunk`; μ (and `self.version`) stay on the old
@@ -388,8 +513,12 @@ class GenerationEngine:
         per-token `weight_versions` stamps stay exact. A second `begin`
         abandons the unfinished shadow buffer. `expect_digest` arms the
         integrity gate: the assembled stream must reproduce it before the
-        swap. Returns the per-chunk byte sizes."""
-        self._check_params(params)
+        swap. `chunk_leaves[k]`, when given, holds the k-th span's leaves
+        already placed on this engine's mesh (a `WeightBroadcaster`
+        executor ran the transfer); installs take those buffers. Returns
+        the per-chunk byte sizes."""
+        if self.mesh is None:
+            self._check_params(params)
         leaves, treedef = tree_flatten(params)
         spans = chunk_spans(leaves, n_chunks)
         sizes = span_bytes(leaves, spans)
@@ -398,6 +527,7 @@ class GenerationEngine:
             "sizes": sizes, "shadow": [None] * len(leaves), "next": 0,
             "version": version, "recompute": recompute_kv,
             "expect": expect_digest, "tokens": [],
+            "chunk_leaves": chunk_leaves,
         }
         return sizes
 
@@ -417,7 +547,23 @@ class GenerationEngine:
             self.wchunks_rejected += 1
             return False
         lo, hi = ws["spans"][k]
-        ws["shadow"][lo:hi] = ws["leaves"][lo:hi]
+        if ws["chunk_leaves"] is not None:
+            # executor-placed span (k-indexed: a retransmit after a
+            # rejected chunk takes the right span)
+            ws["shadow"][lo:hi] = list(ws["chunk_leaves"][k])
+        elif self.mesh is not None:
+            # in-engine executed transfer of the span, measured
+            t0 = time.perf_counter()
+            placed = self._place_leaves(ws["leaves"][lo:hi],
+                                        self._pshard_leaves[lo:hi])
+            synchronize(self.device)
+            self.wexec_log.append({
+                "kind": "chunk", "version": int(ws["version"]), "k": k,
+                "nbytes": ws["sizes"][k],
+                "seconds": time.perf_counter() - t0})
+            ws["shadow"][lo:hi] = placed
+        else:
+            ws["shadow"][lo:hi] = ws["leaves"][lo:hi]
         ws["tokens"].append(chunk_token(ws["version"], k, ws["sizes"][k]))
         ws["next"] += 1
         if ws["next"] < len(ws["spans"]):
@@ -432,7 +578,8 @@ class GenerationEngine:
             return True
         self.last_stream_installed = True
         self.set_weights(tree_unflatten(ws["treedef"], ws["shadow"]),
-                         ws["version"], recompute_kv=ws["recompute"])
+                         ws["version"], recompute_kv=ws["recompute"],
+                         _placed=self.mesh is not None)
         return True
 
     @property
@@ -464,10 +611,11 @@ class GenerationEngine:
             assert self.allocator.live_pages == 0, "pages leaked on reset"
             self._bt_dirty = True
             self._sync_tables()
-        st = self.state
-        st["n_cached"].zero_()
-        st["prompt_len"].fill_(1)
-        st["active"].zero_()
+        if self._runs:
+            st = self.state
+            st["n_cached"].zero_()
+            st["prompt_len"].fill_(1)
+            st["active"].zero_()
         return n
 
     def drain_deferred(self) -> List[Problem]:
@@ -496,10 +644,11 @@ class GenerationEngine:
             self.tables.release_row(s)
             self._bt_dirty = True
             self._sync_tables()
-        st = self.state
-        st["n_cached"][s] = 0
-        st["prompt_len"][s] = 1
-        st["active"][s] = False
+        if self._runs:
+            st = self.state
+            st["n_cached"][s] = 0
+            st["prompt_len"][s] = 1
+            st["active"][s] = False
         return prob
 
     # ----- paged-cache machinery ----------------------------------------
@@ -530,7 +679,8 @@ class GenerationEngine:
     def _sync_tables(self) -> None:
         """Mirror the host block table to the device, once per change."""
         if self._paged and self._bt_dirty:
-            self._bt.copy_(torch.from_numpy(self.tables.table))
+            if self._runs:
+                self._bt.copy_(torch.from_numpy(self.tables.table))
             self._bt_dirty = False
 
     def _unshare_all(self) -> None:
@@ -567,7 +717,8 @@ class GenerationEngine:
             self._deferred.appendleft(prob)
         self.slots_preempted += 1
         # the step reads `active` from the device state: push the kill
-        self.state["active"][int(victim)] = False
+        if self._runs:
+            self.state["active"][int(victim)] = False
         return True
 
     def _ensure_block(self, s: int, j: int,
@@ -605,7 +756,7 @@ class GenerationEngine:
                 continue  # evicted by an earlier slot's allocation
             j = (int(self._host_ncached[s]) % cl) // ps
             self._ensure_block(int(s), j, copies)
-        if copies:
+        if copies and self._runs:
             src = torch.tensor([c[0] for c in copies], device=self.device)
             dst = torch.tensor([c[1] for c in copies], device=self.device)
             for k in _attention_leaves(self.state["cache"]):
@@ -617,9 +768,9 @@ class GenerationEngine:
         """Recurrent SSM state is per slot, not paged: each (fork, leader)
         fork takes a copy of the leader's post-prefill conv and ssd rows
         (a hybrid config's; attention-only configs have none)."""
-        cache = self.state["cache"]
-        if "conv" not in cache:
+        if not self._runs or "conv" not in self.state["cache"]:
             return
+        cache = self.state["cache"]
         dst = torch.tensor([f for f, _ in forks], device=self.device)
         src = torch.tensor([ldr for _, ldr in forks], device=self.device)
         for k in ("conv", "ssd"):
@@ -730,10 +881,12 @@ class GenerationEngine:
         # prompt token by token
         target_nc = np.maximum(new_plen - 1, 0) if chunk else np.zeros(H, np.int64)
         dev = self.device
-        mask_t = torch.from_numpy(mask).to(dev)
-        _admit_impl(self.state, torch.from_numpy(new_tokens).to(dev),
-                    torch.from_numpy(new_plen).to(dev),
-                    torch.from_numpy(target_nc).to(dev), mask_t)
+        if self._runs:
+            with self._ctx():
+                _admit_impl(self.state, torch.from_numpy(new_tokens).to(dev),
+                            torch.from_numpy(new_plen).to(dev),
+                            torch.from_numpy(target_nc).to(dev),
+                            torch.from_numpy(mask).to(dev))
         self._host_active[mask] = True
         self._host_prompt_len[mask] = new_plen[mask]
         self._host_ncached[mask] = target_nc[mask]
@@ -742,12 +895,16 @@ class GenerationEngine:
             # forks never prefill: their cache is the leader's prefix
             n_pre = (int(new_plen[prefill_mask].max()) - 1
                      if prefill_mask.any() else 0)
-            pre_t = torch.from_numpy(prefill_mask).to(dev)
             st = self.state
+            pre_t = (torch.from_numpy(prefill_mask).to(dev) if self._runs
+                     else None)
             for off in range(0, max(n_pre, 0), chunk):
-                M.prefill_chunk(self.params, st["tokens"], st["prompt_len"],
-                                off, pre_t, st["cache"], self.cfg,
-                                chunk=chunk, block_tables=self._bt)
+                if self._runs:
+                    with self._ctx():
+                        M.prefill_chunk(self.params, st["tokens"],
+                                        st["prompt_len"], off, pre_t,
+                                        st["cache"], self.cfg, chunk=chunk,
+                                        block_tables=self._bt)
                 self.prefill_invocations += 1
             self.last_admit_prefill_tokens = int(
                 np.maximum(new_plen[prefill_mask] - 1, 0).sum())
@@ -781,9 +938,19 @@ class GenerationEngine:
             self._prepare_pages_for_step()
         prev_active = self._host_active.copy()
         prev_ncached = self._host_ncached.copy()
-        finished_t = _engine_step(self.params, self.state, self.cfg,
-                                  self.ec, self.generator, self._bt)
-        finished = finished_t.cpu().numpy()   # the step's one device sync
+        H, T = self.ec.n_slots, self.ec.max_len
+        finished_t = None
+        if self._runs:
+            with self._ctx():
+                finished_t = _engine_step(self.params, self.state, self.cfg,
+                                          self.ec, self.generator, self._bt)
+        # the step's one device sync (on a mesh, the first rank's mask)
+        if self.mesh is None:
+            finished = finished_t.cpu().numpy()
+        else:
+            finished = self._lockstep(
+                None if finished_t is None else finished_t.long(), (H,),
+                torch.long).astype(bool)
         # record the weight version of tokens written this step — only
         # tokens actually *sampled* under μ; prompt-forced tokens keep 0
         nxt = prev_ncached + 1
@@ -798,9 +965,13 @@ class GenerationEngine:
         done: List[Rollout] = []
         if finished.any():
             rows = np.where(finished)[0]
-            rows_t = torch.from_numpy(rows).to(self.device)
-            tokens = self.state["tokens"][rows_t].cpu().numpy().astype(np.int32)
-            lp = self.state["lp"][rows_t].cpu().numpy()
+            if self.mesh is None:
+                rows_t = torch.from_numpy(rows).to(self.device)
+                tokens = self.state["tokens"][rows_t].cpu().numpy().astype(
+                    np.int32)
+                lp = self.state["lp"][rows_t].cpu().numpy()
+            else:
+                tokens, lp = self._finished_rows(rows)
             for i, s in enumerate(rows):
                 if self._paged:
                     self._release_slot_pages(int(s))
@@ -825,6 +996,20 @@ class GenerationEngine:
                     truncated=bool(tokens[i, L - 1] != self.ec.eos_id),
                 ))
         return done
+
+    def _finished_rows(self, rows: np.ndarray):
+        """(tokens int32, logprobs float32) of the finished `rows`, the
+        mesh's first rank's, on every rank: one broadcast of both, the
+        tokens and the float32 logprobs' bits side by side in int64."""
+        packed = None
+        if self._runs:
+            rows_t = torch.from_numpy(rows).to(self.device)
+            lp_bits = self.state["lp"][rows_t].view(torch.int32).long()
+            packed = torch.cat([self.state["tokens"][rows_t], lp_bits], 1)
+        T = self.ec.max_len
+        out = self._lockstep(packed, (len(rows), 2 * T), torch.long)
+        lp = out[:, T:].astype(np.int32).view(np.float32)
+        return out[:, :T].astype(np.int32), lp
 
     def oldest_inflight_version(self) -> Optional[int]:
         """Smallest weight-version stamp among sampled tokens of in-flight

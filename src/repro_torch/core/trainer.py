@@ -10,11 +10,19 @@ returns new tensors, never writing into the old ones.
 
 Per-step metrics stay on the device: `Trainer.step` returns a
 `LazyMetrics` view, and the host reads a record in one device-to-host copy
-when (and if) a value is asked for. The JAX package's mesh placement is
-not ported (ROADMAP.md queue A.7e).
+when (and if) a value is asked for.
+
+`mesh=` places the train state on a `DeviceMesh` (the JAX package's
+real-mesh trainer): parameters and both Adam moments in the train layout
+of their logical axes (`launch.steps.state_shardings`), the counters
+replicated, each rank keeping its own block of the whole state it was
+given (no traffic). The step runs under `shardctx.sharding_context`, the
+staged batch is replicated on the mesh, and every metric is reduced to a
+plain tensor, so the host reads the same value on every rank.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from collections.abc import Mapping
 from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
@@ -29,6 +37,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.optim.adam import (AdamConfig, AdamState, adam_init,
                                     adam_update, global_norm)
+from repro_torch.shardctx import full
 
 
 class TrainState(NamedTuple):
@@ -212,27 +221,54 @@ _NON_MODEL_KEYS = ("packing_stats", "weight_versions")
 _LAG_KEYS = ("lag", "truncated")
 
 
+def _map_leaves(fn, tree):
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [fn(x) for x in leaves])
+
+
 class Trainer:
     """Consumes packed batches, performs optimizer steps, exposes the
     current policy weights + version for in-flight updates. Runs on the
     card unless `device="cpu"` is asked for; `params` must already live on
-    that device."""
+    that device. `mesh`/`rules` place the train state on a DeviceMesh
+    (module docstring); `params` are then the whole tensors, the same on
+    every rank."""
 
     def __init__(self, cfg: ModelConfig, params, rl: RLConfig = RLConfig(),
                  adam: AdamConfig = AdamConfig(), lr_schedule=None,
-                 guard: bool = True, device="cuda"):
+                 guard: bool = True, device="cuda", mesh=None, rules=None):
         self.device = resolve_device(device)
         self.cfg, self.rl, self.adam = cfg, rl, adam
-        self.state = init_train_state(params, device=self.device)
+        self.mesh, self.rules = mesh, rules
+        self.state = self._placed(init_train_state(params,
+                                                   device=self.device))
         self.guard = bool(guard)
         self.nonfinite_steps = 0   # updates dropped by the in-step guard
         self._step = make_train_step(cfg, rl, adam, lr_schedule=lr_schedule,
                                      guard=self.guard)
         self.history: List[LazyMetrics] = []
 
+    def _placed(self, state: TrainState) -> TrainState:
+        """`state` (whole tensors) in the train layout on the mesh; as it
+        is without one."""
+        if self.mesh is None:
+            return state
+        from repro_torch.launch.steps import (abstract_train_state,
+                                              distribute_tree,
+                                              state_shardings)
+        ann, _ = abstract_train_state(self.cfg)
+        return distribute_tree(state, state_shardings(ann, self.mesh,
+                                                      self.rules), self.mesh)
+
+    def _ctx(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from repro_torch.shardctx import sharding_context
+        return sharding_context(self.mesh, self.rules)
+
     @property
     def version(self) -> int:
-        return int(self.state.version)
+        return int(full(self.state.version))
 
     @property
     def params(self):
@@ -247,7 +283,13 @@ class Trainer:
                 a = np.asarray(v)
                 v = torch.from_numpy(a.astype(np.int64) if a.dtype.kind in "iu"
                                      else a)
-            out[k] = v.to(self.device, non_blocking=True)
+            v = v.to(self.device, non_blocking=True)
+            if self.mesh is not None:
+                from torch.distributed.tensor import DTensor, Replicate
+                v = DTensor.from_local(v, self.mesh,
+                                       [Replicate()] * self.mesh.ndim,
+                                       run_check=False)
+            out[k] = v
         return out
 
     def step(self, batch, poison: bool = False) -> LazyMetrics:
@@ -259,11 +301,14 @@ class Trainer:
             else _NON_MODEL_KEYS + _LAG_KEYS
         batch = self._stage({k: v for k, v in batch.items()
                              if k not in drop})
-        if self.guard:
-            self.state, metrics = self._step(self.state, batch,
-                                             poison=poison)
-        else:
-            self.state, metrics = self._step(self.state, batch)
+        with self._ctx():
+            if self.guard:
+                self.state, metrics = self._step(self.state, batch,
+                                                 poison=poison)
+            else:
+                self.state, metrics = self._step(self.state, batch)
+            if self.mesh is not None:
+                metrics = {k: full(v) for k, v in metrics.items()}
         m = LazyMetrics(metrics)
         self.history.append(m)
         return m
@@ -283,7 +328,16 @@ class Trainer:
         """Atomic checkpoint of the full TrainState (params, optimizer
         moments, version), in the JAX package's keys."""
         from repro_torch.checkpoint import checkpoint
-        checkpoint.save(path, self.state)
+        if self.mesh is None:
+            checkpoint.save(path, self.state)
+            return checkpoint._norm(path)
+        # on a mesh the state is gathered whole and its first rank writes
+        # it; every rank leaves once the file is in place
+        import torch.distributed as dist
+        whole = _map_leaves(full, self.state)
+        if dist.get_rank() == int(self.mesh.mesh.reshape(-1)[0]):
+            checkpoint.save(path, whole)
+        dist.barrier()
         return checkpoint._norm(path)
 
     def restore(self, path: str) -> int:
@@ -291,7 +345,12 @@ class Trainer:
         the restored version. The next `step` is then the one an
         uninterrupted run would have taken on the same batch."""
         from repro_torch.checkpoint import checkpoint
-        self.state = checkpoint.load(path, self.state)
+        if self.mesh is None:
+            self.state = checkpoint.load(path, self.state)
+            return self.version
+        like = _map_leaves(lambda x: torch.empty(
+            x.shape, dtype=x.dtype, device=self.device), self.state)
+        self.state = self._placed(checkpoint.load(path, like))
         return self.version
 
     def fetch_metrics(self) -> List[Dict[str, float]]:

@@ -17,3 +17,11 @@ def resolve_device(device) -> torch.device:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def synchronize(device) -> None:
+    """Wait for the card's queued work when `device` is a CUDA device (a
+    timing's end); nothing to wait for on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -90,6 +90,8 @@ def fused_logprob_sharded(hidden, head, targets, *, mesh=None,
     or V does not divide, as in the JAX package."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+    from repro_torch.shardctx import redistribute
+
     V = head.shape[0] if transpose_head else head.shape[1]
     n = vocab_shard_count(mesh, axis_name, V)
     kw = dict(transpose_head=bool(transpose_head), dw_chunks=int(dw_chunks))
@@ -100,8 +102,7 @@ def fused_logprob_sharded(hidden, head, targets, *, mesh=None,
     def placed(x, placements):
         if not isinstance(x, DTensor):
             x = DTensor.from_local(x, mesh, rep, run_check=False)
-        return x if tuple(x.placements) == tuple(placements) \
-            else x.redistribute(mesh, placements)
+        return redistribute(x, mesh, placements)
 
     if n <= 1:
         outs = kops.fused_logprob(placed(hidden, rep).to_local(),

@@ -32,9 +32,10 @@ def fake_world(world_size: int, rank: int = 0) -> None:
                             world_size=world_size)
 
 
-def _mesh(ranks: torch.Tensor, names: Tuple[str, ...]):
+def _mesh(ranks: torch.Tensor, names: Tuple[str, ...],
+          device_type: str = "cuda"):
     from torch.distributed.device_mesh import DeviceMesh
-    return DeviceMesh("cuda", ranks, mesh_dim_names=names)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=names)
 
 
 def make_production_mesh(*, multi_pod: bool = False, rank: int = 0):
@@ -71,16 +72,17 @@ def mesh_ranks(mesh) -> torch.Tensor:
 
 def engine_submeshes(mesh, n_engines: int, axis_name: str = "model") -> List:
     """Split a mesh's ranks into `n_engines` disjoint 1D submeshes: the
-    per-engine device sets of a real-mesh actor pool. Ranks must split
-    evenly."""
+    per-engine device sets of a real-mesh actor pool, on the mesh's device
+    type. Ranks must split evenly. Every rank of the group makes every
+    submesh (each is a process group), in the same order."""
     ranks = mesh_ranks(mesh).reshape(-1)
     n = int(n_engines)
     if n <= 0 or len(ranks) % n:
         raise ValueError(
             f"cannot split {len(ranks)} devices into {n} engine meshes")
     per = len(ranks) // n
-    return [_mesh(ranks[i * per:(i + 1) * per], (axis_name,))
-            for i in range(n)]
+    return [_mesh(ranks[i * per:(i + 1) * per], (axis_name,),
+                  mesh.device_type) for i in range(n)]
 
 
 def disaggregated_ranks(mesh, n_train_model: int = 4):

@@ -29,6 +29,7 @@ from repro_torch.configs.base import (ModelConfig, ShapeSpec, for_shape,
 from repro_torch.core.algo import RLConfig
 from repro_torch.core.trainer import TrainState, train_step
 from repro_torch.core.weights import chunk_spans, span_bytes, tree_flatten
+from repro_torch.device import synchronize
 from repro_torch.models import model as M
 from repro_torch.optim.adam import AdamConfig, AdamState
 from repro_torch.sharding import (Annotated, distribute, logical_to_spec,
@@ -90,13 +91,14 @@ def batch_shardings(cfg: ModelConfig, shape: ShapeSpec, mesh, rules=None):
     return specs, {k: place(specs[k], logical[k]) for k in specs}
 
 
-def _distribute_tree(values, placements, mesh):
-    """Zip a tree of tensors with a tree of placements into DTensors."""
+def distribute_tree(values, placements, mesh):
+    """Zip a tree of tensors with a tree of placements into DTensors
+    (`sharding.distribute`)."""
     if isinstance(values, dict):
-        return {k: _distribute_tree(values[k], placements[k], mesh)
+        return {k: distribute_tree(values[k], placements[k], mesh)
                 for k in values}
     if isinstance(values, (list, tuple)):
-        items = [_distribute_tree(v, p, mesh)
+        items = [distribute_tree(v, p, mesh)
                  for v, p in zip(values, placements)]
         return (type(values)(*items) if hasattr(values, "_fields")
                 else type(values)(items))
@@ -146,8 +148,10 @@ def make_serve_fn(cfg: ModelConfig, ring: bool):
 
 def weight_update_fn(leaves, placements, mesh):
     """The in-flight weight transfer: each leaf redistributed from the
-    trainer layout to the generation layout."""
-    return [x.redistribute(mesh, p) for x, p in zip(leaves, placements)]
+    trainer layout to the generation layout (a gloo group's gathers go
+    through `shardctx.redistribute`)."""
+    from repro_torch.shardctx import redistribute
+    return [redistribute(x, mesh, p) for x, p in zip(leaves, placements)]
 
 
 # ---------------------------------------------------------------------------
@@ -215,16 +219,16 @@ def lower_program(arch_cfg: ModelConfig, shape: ShapeSpec, mesh,
     del donate_cache
     cfg = for_shape(arch_cfg, shape)
     specs, bplace = batch_shardings(cfg, shape, mesh, rules)
-    batch = _distribute_tree(specs, bplace, mesh)
+    batch = distribute_tree(specs, bplace, mesh)
     name = f"{cfg.name}:{shape.name}"
     if shape.kind == "train":
         ann, state = abstract_train_state(cfg)
-        state = _distribute_tree(state, state_shardings(ann, mesh, rules),
+        state = distribute_tree(state, state_shardings(ann, mesh, rules),
                                  mesh)
         return trace(name, make_train_fn(cfg, microbatch=microbatch),
                      (state, batch), mesh, rules)
     ann = abstract_params(cfg)
-    params = _distribute_tree(tree_values(ann),
+    params = distribute_tree(tree_values(ann),
                               tree_shardings(ann, mesh, rules), mesh)
     if shape.kind == "prefill":
         fn = make_prefill_fn(cfg)
@@ -295,17 +299,12 @@ def execute_weight_update(arch_cfg: ModelConfig, mesh, n_chunks: int = 1,
                                               device=dev), mesh, p)
                 for v, p in zip(values[lo:hi], train[lo:hi])]
         weight_update_fn(bufs, gen[lo:hi], mesh)        # warm
-        _sync(dev)
+        synchronize(dev)
         t0 = time.perf_counter()
         res = weight_update_fn(bufs, gen[lo:hi], mesh)
         for r in res:
             r.to_local()
-        _sync(dev)
+        synchronize(dev)
         out.append({"chunk": i, "nbytes": int(sizes[i]),
                     "t_exec_s": time.perf_counter() - t0})
     return out
-
-
-def _sync(dev: str) -> None:
-    if dev == "cuda":
-        torch.cuda.synchronize()

@@ -24,8 +24,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, rms_norm
-from repro_torch.shardctx import (constrain, is_distributed, local_call,
-                                  merge_dims, merge_last, split_last)
+from repro_torch.shardctx import (constrain, full, is_distributed,
+                                  local_call, merge_dims, merge_last,
+                                  split_last)
 
 NEG_INF = -1e30
 
@@ -198,7 +199,6 @@ def _write_cache_shard(cache, new, index) -> None:
     rows and ring positions may both be split): the rows it holds write
     the positions it holds, in place, and leave the rest to their
     owners."""
-    from torch.distributed.tensor import Replicate
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
 
@@ -207,20 +207,16 @@ def _write_cache_shard(cache, new, index) -> None:
         cache.shape, mesh, cache.placements)
     local = cache.to_local()
     Bl, CLl = local.shape[:2]
-    rep = [Replicate()] * mesh.ndim
-
-    def whole(t):
-        return t.redistribute(mesh, rep).to_local() if is_distributed(t) \
-            else t
-
-    idx = whole(index)
+    idx = full(index)
     idx = idx.expand(cache.shape[0]) if idx.dim() == 0 else idx
     idx = idx[off[0]:off[0] + Bl]
     pos = torch.remainder(idx, cache.shape[1]) - off[1]
     mine = (pos >= 0) & (pos < CLl)
     pos = pos.clamp(0, CLl - 1)
     rows = torch.arange(Bl, device=local.device)
-    val = whole(new)[off[0]:off[0] + Bl, 0].to(local.dtype)
+    # the trailing dims (KV heads, head dim) this rank holds
+    rest = tuple(slice(o, o + n) for o, n in zip(off[2:], local.shape[2:]))
+    val = full(new)[(slice(off[0], off[0] + Bl), 0) + rest].to(local.dtype)
     keep = local[rows, pos]
     mask = mine.reshape((-1,) + (1,) * (val.dim() - 1))
     local[rows, pos] = torch.where(mask, val, keep)
@@ -256,12 +252,17 @@ def gqa_decode(p, x, positions, cache_k, cache_v, cache_index,
                        ((0, 1), (0, 2), (0, 2), (0, None)), ((0, 1),),
                        scale=_scale(cfg))
     elif paged_kernel:
-        y = kops.flash_decode_paged(q[:, 0], cache_k, cache_v, block_tables,
-                                    lengths, scale=_scale(cfg))
+        # the pool is replicated on a mesh: each rank reads every head
+        y = local_call(kops.flash_decode_paged,
+                       (q[:, 0], cache_k, cache_v, block_tables, lengths),
+                       ((0, 1), (None, 2), (None, 2), (0, None), (0, None)),
+                       ((0, 1),), scale=_scale(cfg))
     else:
-        y = kops.flash_decode(q[:, 0], paged_gather(cache_k, block_tables),
-                              paged_gather(cache_v, block_tables), lengths,
-                              scale=_scale(cfg))
+        y = local_call(kops.flash_decode,
+                       (q[:, 0], paged_gather(cache_k, block_tables),
+                        paged_gather(cache_v, block_tables), lengths),
+                       ((0, 1), (0, 2), (0, 2), (0, None)), ((0, 1),),
+                       scale=_scale(cfg))
     return _out_proj(p, y)[:, None]
 
 
@@ -272,6 +273,9 @@ def write_cache_chunk(cache: torch.Tensor, new: torch.Tensor, offset: int,
     rows not being admitted hold live K/V, and ring caches must not take
     garbage past a row's prompt. The caller reduces offset mod CL; the
     chunk size divides CL, so the slice never wraps."""
+    if is_distributed(cache):
+        return _write_chunk_shard(cache, new, offset, write_mask)
+    new = full(new)
     C = new.shape[1]
     dst = cache[:, offset:offset + C]
     merged = new.to(cache.dtype)
@@ -279,6 +283,38 @@ def write_cache_chunk(cache: torch.Tensor, new: torch.Tensor, offset: int,
         shape = tuple(write_mask.shape) + (1,) * (cache.dim() - write_mask.dim())
         merged = torch.where(write_mask.reshape(shape), merged, dst)
     dst.copy_(merged)
+
+
+def _write_chunk_shard(cache, new, offset: int, write_mask) -> None:
+    """`write_cache_chunk` into this rank's shard of a distributed cache
+    (batch rows and cache positions may both be split), in place: the rows
+    it holds write the chunk positions it holds."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    _, off = compute_local_shape_and_global_offset(
+        cache.shape, cache.device_mesh, cache.placements)
+    local = cache.to_local()
+    Bl, CLl = local.shape[:2]
+    # every rank of the mesh joins the gathers, whether or not it holds a
+    # position of the chunk
+    new = full(new)
+    mask = None if write_mask is None else full(write_mask)
+    C = new.shape[1]
+    lo, hi = max(offset, off[1]), min(offset + C, off[1] + CLl)
+    if lo >= hi or Bl == 0:
+        return
+    rows = slice(off[0], off[0] + Bl)
+    rest = tuple(slice(o, o + n) for o, n in zip(off[2:], local.shape[2:]))
+    val = new[(rows, slice(lo - offset, hi - offset)) + rest].to(local.dtype)
+    dst = local[:, lo - off[1]:hi - off[1]]
+    if mask is not None:
+        m = mask[rows]
+        if m.dim() == 2:
+            m = m[:, lo - offset:hi - offset]
+        m = m.reshape(tuple(m.shape) + (1,) * (dst.dim() - m.dim()))
+        val = torch.where(m, val, dst)
+    dst.copy_(val)
 
 
 def gqa_prefill_chunk(p, x, positions, cache_k, cache_v, offset: int,
@@ -332,6 +368,7 @@ def write_cache_paged(pool, new, index, block_tables) -> None:
     """Paged twin of `write_cache`: write `new` (B,1,...) at ring position
     index mod CL of each row, in place. Inactive rows' block-table entries
     are the trash page, which absorbs their stale writes."""
+    new = full(new)
     PS, NB = pool.shape[1], block_tables.shape[1]
     pos = torch.remainder(index, NB * PS).expand(new.shape[0])
     pages = block_tables.long().gather(1, (pos // PS)[:, None])[:, 0]
@@ -344,6 +381,7 @@ def write_cache_chunk_paged(pool, new, offset: int, write_mask,
     offset+C) lies in one logical block (C divides the page size). Masked
     rows write back what they read, so live rows' pages keep their bytes
     and rows on the trash page all write the same ones."""
+    new = full(new)
     C, PS = new.shape[1], pool.shape[1]
     blk, off = divmod(int(offset), PS)
     pages = block_tables[:, blk].long()

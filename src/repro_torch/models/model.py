@@ -43,9 +43,10 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch import shardctx
 from repro_torch.models.layers import init_leaf, pad_before, rms_norm, swiglu
 from repro_torch.shardctx import (constrain, current_mesh, is_distributed,
-                                  merged_rules)
+                                  merged_rules, redistribute)
 
 Params = Dict[str, Any]
 
@@ -238,7 +239,8 @@ def _embed(params: Params, tokens) -> torch.Tensor:
                 if isinstance(p, Shard)]
     grad = [Partial() if i in tok_axes else Replicate()
             for i in range(mesh.ndim)]
-    rows = table.redistribute(mesh, rep).to_local(grad_placements=grad)
+    rows = redistribute(table, mesh, rep).to_local(
+        grad_placements=grad)
     out = rows[tokens.to_local()]
     return DTensor.from_local(out, mesh, tokens.placements, run_check=False)
 
@@ -452,12 +454,18 @@ def forward(params: Params, tokens, positions, cfg: ModelConfig, *,
     total_aux = torch.zeros((), dtype=torch.float32, device=h.device)
     caches: List[Dict[str, torch.Tensor]] = []
     remat = cfg.remat and torch.is_grad_enabled() and not return_cache
+    # the recompute runs in the backward, on the autograd engine's thread
+    # for CUDA tensors: it re-enters this call's sharding context
+    sctx = shardctx.current()
+
+    def layer_again(hh, lp, kind):
+        with shardctx.resume(sctx):
+            return _layer(cfg, kind, hh, lp, positions, segment_ids)[:2]
+
     for _, kind, lp in iter_layers(params, cfg):
         if remat:
-            h, aux = checkpoint(
-                lambda hh, lp=lp, kind=kind: _layer(
-                    cfg, kind, hh, lp, positions, segment_ids)[:2],
-                h, use_reentrant=False)
+            h, aux = checkpoint(layer_again, h, lp, kind,
+                                use_reentrant=False)
         else:
             h, aux, c = _layer(cfg, kind, h, lp, positions, segment_ids,
                                return_cache)
@@ -519,8 +527,13 @@ def decode_step(params: Params, tokens, positions, cache, cache_index,
             cache["ssd"][l].copy_(ssd)
             return s
 
+        # the residual stream is held replicated after each half, as the
+        # JAX package's layer scan holds its carry
         x = rms_norm(h, lp["norm1"], cfg.norm_eps)
-        h, _ = _ffn(cfg, kind, h + _mix(cfg, lp, x, attn_fn, ssm_fn), lp)
+        h = constrain(h + _mix(cfg, lp, x, attn_fn, ssm_fn),
+                      ("batch", "seq", "embed"))
+        h, _ = _ffn(cfg, kind, h, lp)
+        h = constrain(h, ("batch", "seq", "embed"))
     out = _outputs(params, cfg, h, logits=True)
     out["cache"] = cache
     return out
@@ -587,9 +600,11 @@ def prefill_chunk(params: Params, tokens, prompt_len, offset: int, admit_mask,
             return s
 
         x = rms_norm(h, lp["norm1"], cfg.norm_eps)
-        h = h + _mix(cfg, lp, x, attn_fn, ssm_fn)
+        h = constrain(h + _mix(cfg, lp, x, attn_fn, ssm_fn),
+                      ("batch", "seq", "embed"))
         if logits or l + 1 < cfg.n_layers:  # else the last FFN feeds nothing
             h, _ = _ffn(cfg, kind, h, lp)
+            h = constrain(h, ("batch", "seq", "embed"))
     out = _outputs(params, cfg, h, logits=True) if logits else {}
     out["cache"] = cache
     return out

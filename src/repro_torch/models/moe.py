@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.shardctx import current_mesh, current_rules, is_distributed
+from repro_torch.shardctx import (current_mesh, current_rules, full,
+                                  is_distributed, redistribute)
 
 
 def moe_shapes(cfg: ModelConfig, n_stack: int) -> Dict[str, Any]:
@@ -188,9 +189,7 @@ def _moe_expert_parallel(p, xf, cfg: ModelConfig, mesh):
     def local(t, place, grad):
         if not isinstance(t, DTensor):
             t = DTensor.from_local(t, mesh, rep, run_check=False)
-        if tuple(t.placements) != tuple(place):
-            t = t.redistribute(mesh, place)
-        return t.to_local(grad_placements=grad)
+        return redistribute(t, mesh, place).to_local(grad_placements=grad)
 
     xl = local(xf, x_place, grad_of(x_place, [m_ax]))
     pl = {"router": local(p["router"], rep, grad_of(rep, every))}
@@ -212,14 +211,7 @@ def _moe_replicated(p, xf, cfg: ModelConfig, mesh):
     from torch.distributed.tensor import DTensor, Replicate
 
     rep = [Replicate()] * mesh.ndim
-
-    def whole(t):
-        if not isinstance(t, DTensor):
-            return t
-        return (t if all(isinstance(q, Replicate) for q in t.placements)
-                else t.redistribute(mesh, rep)).to_local()
-
-    out, aux = moe_local({k: whole(v) for k, v in p.items()}, whole(xf), cfg)
+    out, aux = moe_local({k: full(v) for k, v in p.items()}, full(xf), cfg)
     return (DTensor.from_local(out, mesh, rep, run_check=False),
             DTensor.from_local(aux, mesh, rep, run_check=False))
 

@@ -164,14 +164,19 @@ def tree_shardings(tree, mesh, rules=None):
         lambda a: placements_for(spec_for(a, mesh, rules), mesh), tree)
 
 
-def distribute(value, mesh, placements):
+def distribute(value, mesh, placements, src_data_rank=0):
     """A DTensor on `mesh` with `placements` whose global tensor is `value`.
     A meta value becomes a meta DTensor without any data movement (the
-    dry-run); a real value is scattered by `distribute_tensor`."""
+    dry-run). A real value is the mesh's first rank's copy, scattered (or
+    broadcast) from it, so the global tensor is one rank's whatever the
+    others were handed; `src_data_rank=None` instead leaves each rank its
+    block of its own copy with no traffic, for a copy that is the same on
+    every rank by construction (one just gathered whole)."""
     from torch.distributed.tensor import DTensor, distribute_tensor
 
     if value.device.type != "meta":
-        return distribute_tensor(value, mesh, placements)
+        return distribute_tensor(value, mesh, placements,
+                                 src_data_rank=src_data_rank)
     sizes = list(value.shape)
     for mdim, p in enumerate(placements):
         if p.is_shard():

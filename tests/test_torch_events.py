@@ -37,9 +37,17 @@ from repro_torch.core.sim import (HardwareModel,  # noqa: E402
 from repro_torch.data.math_task import MathTask  # noqa: E402
 from repro_torch.data.packing import Rollout  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from torch_twin import one_thread  # noqa: E402
 
 CPU = {"device": "cpu"}
 PC = dict(batch_size=4, n_chips=8, train_chips=4, pack_rows=2, pack_seq=48)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread for the module (`torch_twin.one_thread`)."""
+    with one_thread():
+        yield
 
 
 @pytest.fixture(scope="module")

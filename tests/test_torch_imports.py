@@ -48,6 +48,7 @@ print("A7D", all("repro_torch." + m in sys.modules for m in (
     "sharding", "shardctx", "kernels.sharded", "launch.mesh",
     "launch.steps", "launch.dryrun", "launch.train", "roofline.analysis",
     "roofline.calibrate")))
+print("A7E", "repro_torch.launch.meshrt" in sys.modules)
 print("BAD", bad)
 """
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)],
@@ -60,6 +61,7 @@ print("BAD", bad)
     assert "NEW True True" in out.stdout, out.stdout
     assert "A7 True" in out.stdout, out.stdout
     assert "A7D True" in out.stdout, out.stdout
+    assert "A7E True" in out.stdout, out.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

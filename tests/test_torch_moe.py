@@ -49,11 +49,18 @@ from repro_torch.data.math_task import MathTask, Problem
 from repro_torch.data.packing import Rollout, pack
 from repro_torch.models import model as M
 from repro_torch.models import moe as TMoE
+from torch_twin import one_thread
 
 JTASK, TASK = JaxTask(max_operand=5, ops="+"), MathTask(max_operand=5, ops="+")
 VOCAB = TASK.tok.vocab_size
 ATOL = 1e-5
 CPU = {"device": "cpu"}
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread for the module (`torch_twin.one_thread`)."""
+    with one_thread():
+        yield
 
 
 def _configs(**kw):

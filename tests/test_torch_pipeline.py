@@ -340,12 +340,17 @@ def test_learning_configuration_runs_in_both_packages(capsys):
 
 
 def test_pipeline_refuses_what_is_not_ported(setup):
-    """Mesh placement still raises, naming its queue; a fault plan builds."""
+    """Nothing of the JAX PipelineRL is left unported: mesh placement is
+    `tests/test_torch_mesh_runtime.py`'s; rules without a mesh place
+    nothing (as in the JAX package), and a fault plan builds."""
     task, cfg, params = setup
-    for kw in ({"mesh": object()}, {"rules": object()}):
-        with pytest.raises(NotImplementedError, match="A.7"):
-            PipelineRL(cfg, params, task, EngineConfig(),
-                       PipelineConfig(), **CPU, **kw)
+    p = PipelineRL(cfg, params, task, EngineConfig(), PipelineConfig(),
+                   rules={"heads": None}, **CPU)
+    assert p.mesh is None and p.trainer.mesh is None
+    assert all(e.mesh is None and e._pshard_leaves is None
+               for e in p.engines)
+    assert all(a.devices is None for a in p.actors)
+    assert p.broadcaster.executor is None
     p = PipelineRL(cfg, params, task, EngineConfig(), PipelineConfig(),
                    fault_plan=FaultPlan(), **CPU)
     assert p.fault_plan is not None and p.broadcaster.fault_plan is not None

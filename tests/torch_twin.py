@@ -211,16 +211,9 @@ def assert_same_run(j: Run, t: Run, rel: float = 1e-4) -> None:
             assert abs(b["loss"] - a["loss"]) <= rel * abs(a["loss"]), \
                 (a["loss"], b["loss"])
     assert t.p.pool_stats() == j.p.pool_stats()
-    assert t.p.broadcast_stats() == _no_exec(j.p.broadcast_stats())
+    assert t.p.broadcast_stats() == j.p.broadcast_stats()
     assert t.p.lag_stats() == j.p.lag_stats()
     assert t.p.trainer.version == j.p.trainer.version
-
-
-def _no_exec(stats: dict) -> dict:
-    """The JAX broadcaster's stats less the real-mesh executor's keys,
-    which the port does not carry (ROADMAP.md A.7e)."""
-    return {k: v for k, v in stats.items()
-            if k not in ("executed", "exec_seconds")}
 
 
 def torch_leaves(tree):
