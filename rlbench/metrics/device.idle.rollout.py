@@ -1,0 +1,7 @@
+"""Share (%) of the traced window (whole Preprocessor batches) in which no
+kernel ran on the card."""
+from rlbench.metrics._common import idle
+
+
+def read(rec):
+    return idle(rec)

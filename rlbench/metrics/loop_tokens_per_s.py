@@ -1,0 +1,6 @@
+"""End to end: tokens the engines sampled in the window over its length."""
+
+
+def read(rec):
+    w = rec["window"]
+    return w["sampled_tokens"] / w["seconds"] if w["seconds"] else None

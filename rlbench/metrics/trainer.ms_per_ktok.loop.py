@@ -1,0 +1,7 @@
+"""Trainer.step host-clock ms, synced, per thousand trained (non-pad)
+tokens, in the loop."""
+from rlbench.metrics._common import ms_per_ktok
+
+
+def read(rec):
+    return ms_per_ktok(rec, "trainer", rec["window"]["trained_tokens"])
