@@ -705,7 +705,6 @@ class ActorStage:
         self.streams_completed = 0
         self.streams_aborted = 0
         self.pause_total = 0.0             # decode pause charged to updates
-        self.pause_log: List[Tuple[int, float]] = []   # (version, pause)
 
     _EWMA_ALPHA = 0.25                     # per-tick progress smoothing
 
@@ -765,7 +764,7 @@ class ActorStage:
                             tokens=(deque(tokens) if tokens is not None
                                     else None),
                             n_chunks=len(sizes), pause=install_pause,
-                            per_tick=per_tick, accum=0.0)
+                            per_tick=per_tick)
         if arrivals:
             self._lag_unpark(list(arrivals)[-1])
 
@@ -786,7 +785,6 @@ class ActorStage:
                                     recompute_kv=self.recompute_kv)
             pause += cost
             self.updates_applied += 1
-            self.pause_log.append((version, cost))
         st = self._stream
         if st is not None:
             installed = 0
@@ -798,7 +796,6 @@ class ActorStage:
                        else None)
                 done = self.engine.stream_weight_chunk(token=tok)
                 pause += st["pause"]
-                st["accum"] += st["pause"]
                 installed += 1
                 if done:
                     self.updates_applied += 1
@@ -809,7 +806,6 @@ class ActorStage:
                         # nothing installed, μ stays on the old weights
                         self.updates_applied -= 1
                         self.streams_aborted += 1
-                    self.pause_log.append((st["version"], st["accum"]))
                     self._stream = None
                     # promote the newest publication that waited for the
                     # in-flight transfer to finish

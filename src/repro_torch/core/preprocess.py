@@ -16,6 +16,7 @@ from typing import List
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.algo import token_logprobs
 from repro_torch.core.weights import tree_flatten
@@ -77,6 +78,13 @@ class Preprocessor:
     def process(self, rollouts: List[Rollout]) -> List[Rollout]:
         if not rollouts:
             return rollouts
+        with trace.span("pre.process") as sp:
+            if sp:
+                sp.set(rids=[r.rid for r in rollouts],
+                       tokens=sum(r.length for r in rollouts))
+            return self._process(rollouts)
+
+    def _process(self, rollouts: List[Rollout]) -> List[Rollout]:
         n = len(rollouts)
         max_len = max(r.length for r in rollouts)
         if max_len > self.pc.max_len:
@@ -93,9 +101,10 @@ class Preprocessor:
             lens[i] = r.length
         dev = self.device
         pos = torch.arange(T, device=dev)[None].expand(n, T)
-        ref_lp = self._ref_logprobs(torch.from_numpy(toks).to(dev), pos,
-                                    torch.from_numpy(lens).to(dev)
-                                    ).cpu().numpy()
+        with trace.span("pre.ref_logprobs"):
+            ref_lp = self._ref_logprobs(torch.from_numpy(toks).to(dev), pos,
+                                        torch.from_numpy(lens).to(dev)
+                                        ).cpu().numpy()
         out = []
         for i, r in enumerate(rollouts):
             L = r.length

@@ -51,6 +51,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.base import (ModelConfig, effective_cache_len,
                                       kv_cache_specs, paged_cache_specs,
                                       paged_layout)
@@ -378,6 +379,15 @@ class GenerationEngine:
         self.last_admit_pages = 0          # pages allocated by last refill
         self.slots_preempted = 0           # page-exhaustion evictions
         self.pages_copied = 0              # COW page copies made on device
+        # waste of chunked prefill: every slot runs each chunk, while only
+        # the prefilled rows' prompt tokens (`prefill_tokens`) need it
+        self.prefill_row_tokens = 0        # rows x chunk of each chunk call
+        # host<->device transfers in step, refill and the page code that
+        # make the host wait for the card (device reads, pageable copies)
+        self.blocking_transfers = 0
+        # rollout ids: each admission takes the next, carried on its Rollout
+        self.next_rid = 0
+        self._slot_rid = np.full(H, -1, np.int64)
         # long-prompt admission accounting (EngineConfig.long_prompt)
         self.prompts_rejected = 0
         self.prompts_truncated = 0
@@ -461,6 +471,7 @@ class GenerationEngine:
         dist.broadcast(buf, src=self._src)
         self.lockstep["broadcasts"] += 1
         self.lockstep["bytes"] += buf.numel() * buf.element_size()
+        self.blocking_transfers += 1
         return buf.cpu().numpy()
 
     # ----- weights -----------------------------------------------------
@@ -681,6 +692,7 @@ class GenerationEngine:
         if self._paged and self._bt_dirty:
             if self._runs:
                 self._bt.copy_(torch.from_numpy(self.tables.table))
+                self.blocking_transfers += 1
             self._bt_dirty = False
 
     def _unshare_all(self) -> None:
@@ -742,12 +754,12 @@ class GenerationEngine:
                 self._bt_dirty = True
             return
 
-    def _prepare_pages_for_step(self) -> None:
+    def _prepare_pages_for_step(self) -> int:
         """Before every decode step: make each active slot's write block
         (ring position n_cached mod CL) exclusively owned (lazy alloc at
         block entry, copy-on-write at a fork's divergence block) and make
         the copies on the device. The step relies on it: no write ever
-        lands on a page with refcount > 1."""
+        lands on a page with refcount > 1. Returns the pages copied."""
         ps = self.allocator.page_size
         cl = self._cache_len
         copies: List[Tuple[int, int]] = []
@@ -759,10 +771,12 @@ class GenerationEngine:
         if copies and self._runs:
             src = torch.tensor([c[0] for c in copies], device=self.device)
             dst = torch.tensor([c[1] for c in copies], device=self.device)
+            self.blocking_transfers += 2
             for k in _attention_leaves(self.state["cache"]):
                 pool = self.state["cache"][k]
                 pool[:, dst] = pool[:, src]
         self._sync_tables()
+        return len(copies)
 
     def _copy_fork_rows(self, forks: List[Tuple[int, int]]) -> None:
         """Recurrent SSM state is per slot, not paged: each (fork, leader)
@@ -773,6 +787,7 @@ class GenerationEngine:
         cache = self.state["cache"]
         dst = torch.tensor([f for f, _ in forks], device=self.device)
         src = torch.tensor([ldr for _, ldr in forks], device=self.device)
+        self.blocking_transfers += 2
         for k in ("conv", "ssd"):
             cache[k][:, dst] = cache[k][:, src]
 
@@ -827,15 +842,43 @@ class GenerationEngine:
         pages copy-on-write."""
         self.last_admit_prefill_tokens = 0
         self.last_admit_pages = 0
+        with trace.span("engine.refill") as sp:
+            if not (~self._host_active).any():
+                return 0
+            allocs0 = self.allocator.total_allocs if self._paged else 0
+            with trace.span("engine.refill.admit") as adm:
+                got = self._admit(now)
+                if adm and got is not None:
+                    adm.set(rids=self._slot_rid[got[0]].tolist())
+            if got is None:
+                return 0
+            mask, new_plen, prefill_mask, forks = got
+            if self.prefill_chunk_size:
+                with trace.span("engine.refill.prefill") as pre:
+                    chunks = self._prefill(new_plen, prefill_mask)
+                    if pre:
+                        pre.set(chunks=chunks, rows=self.ec.n_slots,
+                                leaders=new_plen[prefill_mask].tolist())
+            if forks:
+                with trace.span("engine.refill.fork"):
+                    self._fork(forks)
+            if self._paged:
+                self.last_admit_pages = self.allocator.total_allocs - allocs0
+            n = int(mask.sum())
+            if sp:
+                sp.set(admitted=n)
+        return n
+
+    def _admit(self, now: float):
+        """Pull prompts into the free slots and scatter them into the
+        device state; None when none entered, else (admitted mask, prompt
+        lengths, rows that run prefill, (fork, leader) pairs)."""
         free = np.where(~self._host_active)[0]
-        if free.size == 0:
-            return 0
         H, T = self.ec.n_slots, self.ec.max_len
         new_tokens = np.full((H, T), self.ec.pad_id, np.int64)
         new_plen = np.zeros(H, np.int64)
         mask = np.zeros(H, bool)
         chunk = self.prefill_chunk_size
-        allocs0 = self.allocator.total_allocs if self._paged else 0
         # prefix sharing needs the chunked path: forks resume at n_cached =
         # P-1, which the legacy token-forcing loop never reaches
         share = self._paged and chunk > 0 and self.ec.prefix_sharing
@@ -874,8 +917,10 @@ class GenerationEngine:
             self.problems[s] = prob
             self.ver_buf[s] = 0
             self.started_at[s] = now
+            self._slot_rid[s] = self.next_rid
+            self.next_rid += 1
         if not mask.any():
-            return 0
+            return None
         # chunked path: decode resumes at the LAST prompt token
         # (n_cached = P-1); the legacy path starts at 0 and forces the
         # prompt token by token
@@ -887,39 +932,50 @@ class GenerationEngine:
                             torch.from_numpy(new_plen).to(dev),
                             torch.from_numpy(target_nc).to(dev),
                             torch.from_numpy(mask).to(dev))
+            self.blocking_transfers += 4
         self._host_active[mask] = True
         self._host_prompt_len[mask] = new_plen[mask]
         self._host_ncached[mask] = target_nc[mask]
         self._sync_tables()
-        if chunk:
-            # forks never prefill: their cache is the leader's prefix
-            n_pre = (int(new_plen[prefill_mask].max()) - 1
-                     if prefill_mask.any() else 0)
-            st = self.state
-            pre_t = (torch.from_numpy(prefill_mask).to(dev) if self._runs
-                     else None)
-            for off in range(0, max(n_pre, 0), chunk):
-                if self._runs:
-                    with self._ctx():
-                        M.prefill_chunk(self.params, st["tokens"],
-                                        st["prompt_len"], off, pre_t,
-                                        st["cache"], self.cfg, chunk=chunk,
-                                        block_tables=self._bt)
-                self.prefill_invocations += 1
-            self.last_admit_prefill_tokens = int(
-                np.maximum(new_plen[prefill_mask] - 1, 0).sum())
-            self.prefill_tokens += self.last_admit_prefill_tokens
-            self.prompt_prefills += int(prefill_mask.sum())
-        if forks:
-            for f, ldr in forks:
-                self.tables.fork_row(f, ldr)
-            self._bt_dirty = True
-            self._sync_tables()
-            self.prefix_forks += len(forks)
-            self._copy_fork_rows(forks)
-        if self._paged:
-            self.last_admit_pages = self.allocator.total_allocs - allocs0
-        return int(mask.sum())
+        return mask, new_plen, prefill_mask, forks
+
+    def _prefill(self, new_plen: np.ndarray, prefill_mask: np.ndarray) -> int:
+        """Chunked prefill of the admitted rows that need it (forks never
+        prefill: their cache is the leader's prefix); every slot takes part
+        in each chunk's compute. Returns the chunks run."""
+        chunk = self.prefill_chunk_size
+        n_pre = (int(new_plen[prefill_mask].max()) - 1
+                 if prefill_mask.any() else 0)
+        st = self.state
+        pre_t = None
+        if self._runs:
+            pre_t = torch.from_numpy(prefill_mask).to(self.device)
+            self.blocking_transfers += 1
+        offsets = range(0, max(n_pre, 0), chunk)
+        for off in offsets:
+            if self._runs:
+                with self._ctx():
+                    M.prefill_chunk(self.params, st["tokens"],
+                                    st["prompt_len"], off, pre_t,
+                                    st["cache"], self.cfg, chunk=chunk,
+                                    block_tables=self._bt)
+            self.prefill_invocations += 1
+        self.prefill_row_tokens += len(offsets) * self.ec.n_slots * chunk
+        self.last_admit_prefill_tokens = int(
+            np.maximum(new_plen[prefill_mask] - 1, 0).sum())
+        self.prefill_tokens += self.last_admit_prefill_tokens
+        self.prompt_prefills += int(prefill_mask.sum())
+        return len(offsets)
+
+    def _fork(self, forks: List[Tuple[int, int]]) -> None:
+        """Each (fork, leader) pair shares the leader's prefix pages
+        copy-on-write (and takes a copy of its recurrent rows)."""
+        for f, ldr in forks:
+            self.tables.fork_row(f, ldr)
+        self._bt_dirty = True
+        self._sync_tables()
+        self.prefix_forks += len(forks)
+        self._copy_fork_rows(forks)
 
     @property
     def n_active(self) -> int:
@@ -930,34 +986,60 @@ class GenerationEngine:
     def step(self, task: Optional[MathTask] = None,
              now: float = 0.0) -> List[Rollout]:
         """Generate one token on every active slot; returns the rollouts
-        that finished this step."""
-        if self._paged:
-            # every active slot's next write lands on an exclusively owned
-            # page (may preempt a slot, which deactivates it before the
-            # mirrors are copied)
-            self._prepare_pages_for_step()
-        prev_active = self._host_active.copy()
-        prev_ncached = self._host_ncached.copy()
-        H, T = self.ec.n_slots, self.ec.max_len
-        finished_t = None
-        if self._runs:
-            with self._ctx():
-                finished_t = _engine_step(self.params, self.state, self.cfg,
-                                          self.ec, self.generator, self._bt)
-        # the step's one device sync (on a mesh, the first rank's mask)
-        if self.mesh is None:
-            finished = finished_t.cpu().numpy()
-        else:
-            finished = self._lockstep(
-                None if finished_t is None else finished_t.long(), (H,),
-                torch.long).astype(bool)
+        that finished this step. Its spans tile it in order: the pages
+        made ready, the device step enqueued, the wait for its `finished`
+        mask, and the host's bookkeeping with the finished rows' fetch."""
+        with trace.span("engine.step", version=self.version) as sp:
+            with trace.span("engine.step.pages") as pg:
+                if self._paged:
+                    # every active slot's next write lands on an
+                    # exclusively owned page (may preempt a slot, which
+                    # deactivates it before the mirrors are copied)
+                    copies = self._prepare_pages_for_step()
+                    if pg:
+                        pg.set(copies=copies)
+            with trace.span("engine.step.enqueue"):
+                prev_active = self._host_active.copy()
+                prev_ncached = self._host_ncached.copy()
+                H, T = self.ec.n_slots, self.ec.max_len
+                finished_t = None
+                if self._runs:
+                    with self._ctx():
+                        finished_t = _engine_step(
+                            self.params, self.state, self.cfg, self.ec,
+                            self.generator, self._bt)
+            with trace.span("engine.step.wait"):
+                # the step's one device sync (on a mesh, the first rank's
+                # mask)
+                if self.mesh is None:
+                    finished = finished_t.cpu().numpy()
+                    self.blocking_transfers += 1
+                else:
+                    finished = self._lockstep(
+                        None if finished_t is None else finished_t.long(),
+                        (H,), torch.long).astype(bool)
+            with trace.span("engine.step.finish") as fin:
+                rows_active = int(prev_active.sum())
+                if sp:
+                    sp.set(rows=rows_active)
+                done = self._finish_step(task, now, prev_active,
+                                         prev_ncached, finished,
+                                         rows_active)
+                if fin:
+                    fin.set(rids=[r.rid for r in done])
+        return done
+
+    def _finish_step(self, task, now, prev_active, prev_ncached, finished,
+                     rows_active) -> List[Rollout]:
+        """The host's side of a decode step: version stamps, the mirrors,
+        and the finished rows fetched into `Rollout`s."""
         # record the weight version of tokens written this step — only
         # tokens actually *sampled* under μ; prompt-forced tokens keep 0
         nxt = prev_ncached + 1
         wrote = (prev_active & (nxt < self.ec.max_len)
                  & (nxt >= self._host_prompt_len))
         self.ver_buf[wrote, nxt[wrote]] = self.version
-        self.tokens_generated += int(prev_active.sum())
+        self.tokens_generated += rows_active
         # advance host mirrors (the device did n_cached+1 on active slots)
         self._host_ncached[prev_active] += 1
         self._host_active[finished] = False
@@ -970,6 +1052,7 @@ class GenerationEngine:
                 tokens = self.state["tokens"][rows_t].cpu().numpy().astype(
                     np.int32)
                 lp = self.state["lp"][rows_t].cpu().numpy()
+                self.blocking_transfers += 3
             else:
                 tokens, lp = self._finished_rows(rows)
             for i, s in enumerate(rows):
@@ -994,6 +1077,7 @@ class GenerationEngine:
                                 if prob is not None else 0),
                     slot=int(s),
                     truncated=bool(tokens[i, L - 1] != self.ec.eos_id),
+                    rid=int(self._slot_rid[s]),
                 ))
         return done
 
@@ -1004,6 +1088,7 @@ class GenerationEngine:
         packed = None
         if self._runs:
             rows_t = torch.from_numpy(rows).to(self.device)
+            self.blocking_transfers += 1
             lp_bits = self.state["lp"][rows_t].view(torch.int32).long()
             packed = torch.cat([self.state["tokens"][rows_t], lp_bits], 1)
         T = self.ec.max_len

@@ -28,6 +28,7 @@ class Rollout:
     token_rewards: Optional[np.ndarray] = None  # KL-shaped per-token rewards
     slot: int = -1                 # engine slot that produced this rollout
     truncated: bool = False        # hit max_len without emitting EOS
+    rid: int = -1                  # the engine's id of its admission
 
     @property
     def length(self) -> int:
