@@ -379,8 +379,9 @@ class GenerationEngine:
         self.last_admit_pages = 0          # pages allocated by last refill
         self.slots_preempted = 0           # page-exhaustion evictions
         self.pages_copied = 0              # COW page copies made on device
-        # waste of chunked prefill: every slot runs each chunk, while only
-        # the prefilled rows' prompt tokens (`prefill_tokens`) need it
+        # waste of chunked prefill: each chunk runs its rows (those the
+        # refill admitted, or every slot: `_prefill`), while only the
+        # prefilled rows' prompt tokens (`prefill_tokens`) need it
         self.prefill_row_tokens = 0        # rows x chunk of each chunk call
         # host<->device transfers in step, refill and the page code that
         # make the host wait for the card (device reads, pageable copies)
@@ -855,9 +856,10 @@ class GenerationEngine:
             mask, new_plen, prefill_mask, forks = got
             if self.prefill_chunk_size:
                 with trace.span("engine.refill.prefill") as pre:
-                    chunks = self._prefill(new_plen, prefill_mask)
+                    chunks, rows = self._prefill(new_plen, mask,
+                                                 prefill_mask)
                     if pre:
-                        pre.set(chunks=chunks, rows=self.ec.n_slots,
+                        pre.set(chunks=chunks, rows=rows,
                                 leaders=new_plen[prefill_mask].tolist())
             if forks:
                 with trace.span("engine.refill.fork"):
@@ -939,33 +941,67 @@ class GenerationEngine:
         self._sync_tables()
         return mask, new_plen, prefill_mask, forks
 
-    def _prefill(self, new_plen: np.ndarray, prefill_mask: np.ndarray) -> int:
+    def _prefill(self, new_plen: np.ndarray, mask: np.ndarray,
+                 prefill_mask: np.ndarray) -> Tuple[int, int]:
         """Chunked prefill of the admitted rows that need it (forks never
-        prefill: their cache is the leader's prefix); every slot takes part
-        in each chunk's compute. Returns the chunks run."""
+        prefill: their cache is the leader's prefix). The chunks run on a
+        compact batch of the rows this refill admitted (`mask`): their
+        tokens, prompt lengths and, paged, block-table rows; the
+        slot-indexed cache leaves (the slot cache's attention leaves, the
+        SSM's conv and ssd) are gathered before the first chunk and written
+        back after the last, while page pools take the writes in place, in
+        pages the prefilled rows own. A fork takes part in the compute and
+        writes nothing: the card's GEMMs choose their kernels by row count,
+        so a paged engine that shares a GRPO group's prefix must run the
+        batch of a slot engine that prefills every copy to match it bit for
+        bit. Every slot takes part instead where a row does not stand alone:
+        an MoE layer's capacity is shared by every row of a call, and a mesh
+        engine's slot cache is split on its batch axis. Returns (chunks run,
+        rows in each chunk call)."""
         chunk = self.prefill_chunk_size
-        n_pre = (int(new_plen[prefill_mask].max()) - 1
-                 if prefill_mask.any() else 0)
-        st = self.state
-        pre_t = None
+        n_pre = int(new_plen[prefill_mask].max(initial=1)) - 1
+        # where every slot was admitted, the compact batch is the slots as
+        # they are, with nothing to gather
+        every = (self.cfg.n_experts > 0 or self.mesh is not None
+                 or bool(mask.all()))
+        n_rows = self.ec.n_slots if every else int(mask.sum())
+        offsets = range(0, n_pre, chunk)
         if self._runs:
-            pre_t = torch.from_numpy(prefill_mask).to(self.device)
+            st = self.state
+            cache, bt = st["cache"], self._bt
+            slot_leaves: List[str] = []
+            if every:
+                tokens, plen = st["tokens"], st["prompt_len"]
+                admit = torch.from_numpy(prefill_mask).to(self.device)
+            else:
+                # one copy: the admitted rows, and which of them prefill
+                sel = np.nonzero(mask)[0]
+                idx = torch.from_numpy(np.stack([sel, prefill_mask[sel]])).to(
+                    self.device)
+                rows, admit = idx[0], idx[1].bool()
+                tokens, plen = st["tokens"][rows], st["prompt_len"][rows]
+                slot_leaves = [k for k in cache if not (
+                    self._paged and k in _PAGED_LEAVES)]
+                cache = dict(cache)
+                for k in slot_leaves:
+                    cache[k] = cache[k][:, rows]
+                if self._paged:
+                    bt = bt[rows]
             self.blocking_transfers += 1
-        offsets = range(0, max(n_pre, 0), chunk)
-        for off in offsets:
-            if self._runs:
-                with self._ctx():
-                    M.prefill_chunk(self.params, st["tokens"],
-                                    st["prompt_len"], off, pre_t,
-                                    st["cache"], self.cfg, chunk=chunk,
-                                    block_tables=self._bt)
-            self.prefill_invocations += 1
-        self.prefill_row_tokens += len(offsets) * self.ec.n_slots * chunk
+            with self._ctx():
+                for off in offsets:
+                    M.prefill_chunk(self.params, tokens, plen, off, admit,
+                                    cache, self.cfg, chunk=chunk,
+                                    block_tables=bt)
+            for k in slot_leaves:
+                st["cache"][k].index_copy_(1, rows, cache[k])
+        self.prefill_invocations += len(offsets)
+        self.prefill_row_tokens += len(offsets) * n_rows * chunk
         self.last_admit_prefill_tokens = int(
             np.maximum(new_plen[prefill_mask] - 1, 0).sum())
         self.prefill_tokens += self.last_admit_prefill_tokens
         self.prompt_prefills += int(prefill_mask.sum())
-        return len(offsets)
+        return len(offsets), n_rows
 
     def _fork(self, forks: List[Tuple[int, int]]) -> None:
         """Each (fork, leader) pair shares the leader's prefix pages

@@ -554,15 +554,17 @@ def prefill_chunk(params: Params, tokens, prompt_len, offset: int, admit_mask,
                   cache, cfg: ModelConfig, *, chunk: int,
                   logits: bool = False, block_tables=None):
     """One chunk of chunked-prefill admission: prompt positions
-    [offset, offset+chunk) of every slot through the whole stack, K/V and/or
-    the SSM's conv and SSD state written into the cache in place. tokens:
-    (B,T) slot token buffer; prompt_len: (B,); offset: host int, with
-    offset + chunk <= T, offset % chunk == 0 and chunk | CL; admit_mask:
-    (B,) bool, True for the slots admitted by this refill (the others take
-    part in the compute, MoE routing and its capacity included, but their
-    cache is untouched). Writes are also masked to positions
-    < prompt_len - 1 of each row, so a wrapped ring never takes prompt
-    garbage; the SSD recurrence takes the same mask as dt = 0 no-ops.
+    [offset, offset+chunk) of each of the B rows through the whole stack,
+    K/V and/or the SSM's conv and SSD state written into the cache in place.
+    The rows are any batch of slots: the engine passes the rows it prefills
+    alone, or every slot where rows are coupled (MoE). tokens: (B,T) token
+    buffer; prompt_len: (B,); offset: host int, with offset + chunk <= T,
+    offset % chunk == 0 and chunk | CL; admit_mask: (B,) bool, True for the
+    rows to prefill (the others take part in the compute, MoE routing and
+    its capacity included, but their cache is untouched). Writes are also
+    masked to positions < prompt_len - 1 of each row, so a wrapped ring
+    never takes prompt garbage; the SSD recurrence takes the same mask as
+    dt = 0 no-ops.
     Admission needs no logits (the first completion token is sampled by the
     decode step at n_cached = prompt_len - 1); `logits=True` also runs the
     last FFN and the head, to check the chunk's forward.

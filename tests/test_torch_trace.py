@@ -179,7 +179,7 @@ def test_step_children_tile_the_step_in_order():
 
 def test_prefill_counters_match_the_admitted_prompts():
     _, _, eng = _engine()
-    want = {"useful": 0, "rows": 0, "refills": []}
+    want = {"useful": 0, "rows": 0, "refills": [], "batch": []}
 
     def on_refill(e, before):
         new = np.nonzero(e._host_active & ~before)[0]
@@ -189,7 +189,9 @@ def test_prefill_counters_match_the_admitted_prompts():
         lens = sorted(len(p) for p in leaders)
         chunks = -(-(max(lens) - 1) // EC.prefill_chunk)
         want["useful"] += sum(n - 1 for n in lens)
-        want["rows"] += EC.n_slots * EC.prefill_chunk * chunks
+        # each chunk runs the rows the refill admitted, forks included
+        want["rows"] += len(new) * EC.prefill_chunk * chunks
+        want["batch"].append(len(new))
         want["refills"].append((lens, chunks))
         assert (e.prefill_tokens, e.prefill_row_tokens) == (
             want["useful"], want["rows"])
@@ -199,12 +201,12 @@ def test_prefill_counters_match_the_admitted_prompts():
     recs = trace.take()
     assert len(want["refills"]) == 2
     assert (eng.prefill_tokens, eng.prefill_row_tokens) == (
-        (5 + 8) + 6, 8 * 4 * (2 + 2))
+        (5 + 8) + 6, 4 * (8 * 2 + 4 * 2))
     got = [(sorted(r[4]["leaders"]), r[4]["chunks"]) for r in recs
            if r[0] == "engine.refill.prefill"]
     assert got == want["refills"]
-    assert all(r[4]["rows"] == EC.n_slots for r in recs
-               if r[0] == "engine.refill.prefill")
+    assert [r[4]["rows"] for r in recs
+            if r[0] == "engine.refill.prefill"] == want["batch"] == [8, 4]
 
 
 class _Sites:
