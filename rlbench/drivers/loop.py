@@ -99,7 +99,7 @@ def run(ctx: Dict) -> Dict:
 
     if trace:
         spans.wrap(eng, "refill", "refill", lambda n, a, k: {"admitted": n})
-        spans.wrap_decode(eng, st["decode"])
+        spans.wrap_decode(eng, st["decode"], ctx.get("recording"))
         spans.wrap(eng, "stream_weight_chunk", "swap",
                    lambda done, a, k: {"version": eng._wstream["version"]
                                        if eng._wstream else eng.version,
@@ -193,7 +193,7 @@ def run(ctx: Dict) -> Dict:
           "v": v}
     prof = None
     if trace and dev.type == "cuda":
-        prof, t_mark = harness.profile_start()
+        prof = harness.Profile()
     t_prof_end = None
     while True:
         v += 1
@@ -206,8 +206,7 @@ def run(ctx: Dict) -> Dict:
             # reading the trace is the benchmark's own work: out of the
             # window's clock
             with clock.pause():
-                prof_sum = harness.profile_summary(prof, t_mark, clock,
-                                                   t_open, now, spans)
+                prof_sum = prof.summary(clock, t_open, now, spans)
         if now - t_open >= ctx["seconds"]:
             break
     t_close = now

@@ -66,7 +66,7 @@ def run(ctx: Dict) -> Dict:
     decode: List = []
     if trace:
         spans.wrap(eng, "refill", "refill", lambda n, a, k: {"admitted": n})
-        spans.wrap_decode(eng, decode)
+        spans.wrap_decode(eng, decode, ctx.get("recording"))
         spans.wrap(pre, "_ref_logprobs", "pre",
                    lambda out, a, k: {"tokens": int(a[0].numel())})
 
@@ -120,7 +120,7 @@ def run(ctx: Dict) -> Dict:
           "batches": len(batches), "finished": len(finished)}
     prof = prof_sum = t_prof_end = None
     if trace and dev.type == "cuda":
-        prof, t_mark = harness.profile_start()
+        prof = harness.Profile()
     while True:
         if not tick():
             continue
@@ -132,8 +132,7 @@ def run(ctx: Dict) -> Dict:
             # reading the trace is the benchmark's own work: out of the
             # window's clock
             with clock.pause():
-                prof_sum = harness.profile_summary(prof, t_mark, clock,
-                                                   t_open, now, spans)
+                prof_sum = prof.summary(clock, t_open, now, spans)
         if now - t_open >= ctx["seconds"]:
             break
     t_close = now

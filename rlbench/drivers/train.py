@@ -109,7 +109,7 @@ def run(ctx: Dict) -> Dict:
     k0 = len(steps)
     prof = prof_sum = t_prof_end = None
     if trace and dev.type == "cuda":
-        prof, t_mark = harness.profile_start()
+        prof = harness.Profile()
     while True:
         one_step(keep=False)
         sync()
@@ -120,8 +120,7 @@ def run(ctx: Dict) -> Dict:
             # reading the trace is the benchmark's own work: out of the
             # window's clock
             with clock.pause():
-                prof_sum = harness.profile_summary(prof, t_mark, clock,
-                                                   t_open, now, spans)
+                prof_sum = prof.summary(clock, t_open, now, spans)
         if now - t_open >= ctx["seconds"]:
             break
     t_close = now

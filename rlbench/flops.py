@@ -11,6 +11,8 @@ from __future__ import annotations
 import subprocess
 from typing import Dict, Iterable, Sequence
 
+from rlbench import arch
+
 # NVIDIA H100 SXM data sheet, dense (no sparsity), at the 700 W limit
 PEAK_FLOPS_BF16 = 989e12
 PEAK_FLOPS_FP32 = 67e12            # outside the tensor cores
@@ -32,22 +34,11 @@ def card_power_limit() -> str:
 
 
 def param_count(c: Dict, active_only: bool = False) -> int:
-    """Parameters of the embedding, the head and the layers of a GQA
-    decoder, dense or with routed experts (`c` is a configuration file):
-    a frozen copy of the port's analytic count. `active_only` counts the
-    experts a token uses."""
-    d, L = c["hidden_size"], c["num_hidden_layers"]
-    n = c["vocab_size"] * d * (1 if c["tie_word_embeddings"] else 2)
-    per_layer = 2 * d
-    per_layer += 2 * d * c["num_attention_heads"] * c["head_dim"]
-    per_layer += 2 * d * c["num_key_value_heads"] * c["head_dim"]
-    if c.get("num_local_experts", 0):
-        E = c["num_local_experts"]
-        routed = c["num_experts_per_tok"] if active_only else E
-        per_layer += d * E + routed * 3 * d * c["intermediate_size"]
-    else:
-        per_layer += 3 * d * c["intermediate_size"]
-    return n + L * per_layer
+    """Parameters of the embedding, the head and the layers (`c` is a
+    configuration file): the architecture's frozen copy of the port's
+    analytic count (`rlbench/arch/<model_type>.py`). `active_only` counts
+    the experts a token uses."""
+    return arch.of(c).param_count(c, active_only)
 
 
 def active_params_no_embed(c: Dict) -> int:

@@ -119,12 +119,13 @@ class Spans:
         setattr(owner, attr, timed)
         return raw
 
-    def wrap_decode(self, eng, steps: List) -> None:
+    def wrap_decode(self, eng, steps: List, recording=None) -> None:
         """Time the engine's decode step as `wrap` does, but with no sync
         after the call, which ends in the step's own device-to-host read
         of its finished mask. Each step also appends to `steps` its span
         with the active rows' key lengths and block table, which the paged
-        decode roofline reads."""
+        decode roofline reads, and then, with a `recording`
+        (`program.Recording`), samples the engine's counters."""
         raw = eng.step
 
         def step(*a, **k):
@@ -137,6 +138,8 @@ class Spans:
             t1 = self.clock.now()
             self.spans.append(("decode", t0, t1, {}))
             steps.append((t0, t1, lens, table))
+            if recording is not None:
+                recording.sample(eng)
             return out
 
         eng.step = step
@@ -145,18 +148,76 @@ class Spans:
 MARK_KERNELS = ("spin_kernel", "sleep")  # `torch.cuda._sleep`: the mark
 
 
-def profile_start():
-    """Start the profiler on the card's activity; returns it with the host
-    time at which a mark kernel was launched on an idle card, which aligns
-    the trace's clock to the host's."""
-    from torch.profiler import ProfilerActivity, profile
-    prof = profile(activities=[ProfilerActivity.CUDA])
-    prof.__enter__()
-    sync()
-    t_mark = time.perf_counter()
-    torch.cuda._sleep(100)
-    sync()
-    return prof, t_mark
+def end_mark() -> float:
+    """A mark for the trace's clock taken by its end: the host's time when
+    a sync on an idle card returns from a short sleep kernel. The start
+    mark of `Profile` is taken by its start, at the host's time before the
+    launch, which puts the kernels early by the launch's own time (the
+    first launch under the profiler is slow)."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+class Profile:
+    """The profiler on the card's activity over a traced span, with the
+    marks that align the trace's clock to the host's: a mark kernel
+    launched on an idle card at the start (host time `t_mark`, before the
+    launch), and two end marks (`end_mark`, host times `ends`), one just
+    after the start and one before the profiler stops, which
+    `program.device_activity` reads."""
+
+    def __init__(self):
+        from torch.profiler import ProfilerActivity, profile
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        sync()
+        self.t_mark = time.perf_counter()
+        torch.cuda._sleep(100)
+        sync()
+        self.ends = [end_mark()]
+
+    def summary(self, clock: Clock, t_lo: float, t_hi: float,
+                spans: Spans) -> Dict:
+        """The traced span [t_lo, t_hi) (window clock): device busy
+        seconds, seconds by kernel name, and the idle gaps summed by the
+        host span they fell in; with `acts`, every device activity on the
+        trace's clock (`_kernels`), and the marks. The trace's clock is
+        aligned to the host's by the start mark, then to the window's
+        (`Clock.window_of`); activity outside [t_lo, t_hi), or inside one
+        of the benchmark's own pauses, is cut off."""
+        self.ends.append(end_mark())
+        self.prof.__exit__(None, None, None)
+        acts = _kernels(self.prof)
+        mark = min(a for n, a, _ in acts
+                   if any(k in n for k in MARK_KERNELS))
+        shift = self.t_mark - mark
+        ks = [(n, max(clock.window_of(a + shift), t_lo),
+               min(clock.window_of(b + shift), t_hi))
+              for n, a, b in acts]
+        ks = [k for k in ks if k[2] > k[1]]
+        window = t_hi - t_lo
+        by_name: Dict[str, float] = {}
+        for name, a, b in ks:
+            by_name[name] = by_name.get(name, 0.0) + (b - a)
+        busy_iv = _union([(a, b) for _, a, b in ks])
+        busy = sum(b - a for a, b in busy_iv)
+        gaps: Dict[str, float] = {}
+        prev = t_lo
+        for a, b in busy_iv + [(t_hi, t_hi)]:
+            if a > prev:
+                mid = 0.5 * (prev + a)
+                label = "loop"
+                for s in spans.spans:
+                    if s[1] <= mid < s[2]:
+                        label = s[0]
+                gaps[label] = gaps.get(label, 0.0) + (a - prev)
+            prev = max(prev, b)
+        return {"busy_s": busy, "window_s": window, "by_name": by_name,
+                "idle_by_host": gaps,
+                "n_kernels": len(ks), "acts": acts, "ends": self.ends,
+                "t_mark": self.t_mark}
 
 
 def _kernels(prof) -> List[Tuple[str, float, float]]:
@@ -179,43 +240,3 @@ def _union(iv: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
         else:
             out.append((a, b))
     return out
-
-
-def profile_summary(prof, t_mark: float, clock: Clock, t_lo: float,
-                    t_hi: float, spans: Spans) -> Dict:
-    """The traced span [t_lo, t_hi) (window clock): device busy seconds,
-    seconds by kernel name, and the idle gaps summed by the host span they
-    fell in. The trace's
-    clock is aligned to the host's by the mark kernel (`profile_start`),
-    then to the window's (`Clock.window_of`); activity outside
-    [t_lo, t_hi), or inside one of the benchmark's own pauses, is cut
-    off."""
-    prof.__exit__(None, None, None)
-    mark = min(a for n, a, _ in _kernels(prof)
-               if any(k in n for k in MARK_KERNELS))
-    shift = t_mark - mark
-    ks = [(n, max(clock.window_of(a + shift), t_lo),
-           min(clock.window_of(b + shift), t_hi))
-          for n, a, b in _kernels(prof)]
-    ks = [k for k in ks if k[2] > k[1]]
-    window = t_hi - t_lo
-    by_name: Dict[str, float] = {}
-    for name, a, b in ks:
-        by_name[name] = by_name.get(name, 0.0) + (b - a)
-    busy_iv = _union([(a, b) for _, a, b in ks])
-    busy = sum(b - a for a, b in busy_iv)
-    gaps: Dict[str, float] = {}
-    prev = t_lo
-    for a, b in busy_iv + [(t_hi, t_hi)]:
-        if a > prev:
-            mid = 0.5 * (prev + a)
-            label = "loop"
-            for s in spans.spans:
-                if s[1] <= mid < s[2]:
-                    label = s[0]
-            gaps[label] = gaps.get(label, 0.0) + (a - prev)
-        prev = max(prev, b)
-    return {"busy_s": busy, "window_s": window, "by_name": by_name,
-            "idle_by_host": gaps,
-            "n_kernels": len(ks)}
-

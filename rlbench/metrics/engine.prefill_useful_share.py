@@ -1,7 +1,9 @@
 """Share (%) of chunked prefill's row-tokens that prefill a prompt, over
 the traced window: the engine's prompt tokens prefilled (`prefill_tokens`,
 P-1 per prefilled row) over rows x chunk of every chunk call
-(`prefill_row_tokens`; every slot takes part in each chunk)."""
+(`prefill_row_tokens`). A chunk runs the rows the refill admitted (a
+leader with its forks, which prefill nothing); every slot runs only for
+MoE configs, mesh engines and a refill that fills every slot."""
 from rlbench.program import counter_delta
 
 

@@ -11,38 +11,42 @@ from typing import Dict
 
 import torch
 
-# configuration-file key -> the port's ModelConfig field
-_WIDTHS = {"num_hidden_layers": "n_layers", "hidden_size": "d_model",
-           "num_attention_heads": "n_heads",
-           "num_key_value_heads": "n_kv_heads", "head_dim": "d_head",
-           "vocab_size": "vocab_size", "rope_theta": "rope_theta",
-           "rms_norm_eps": "norm_eps",
-           "tie_word_embeddings": "tie_embeddings"}
-_MOE = {"num_local_experts": "n_experts",
-        "num_experts_per_tok": "experts_per_token",
-        "intermediate_size": "moe_d_ff",
-        "capacity_factor": "capacity_factor"}
+from rlbench import arch
+
+# fields the harness sets from the file's options, not sizes
+HARNESS_FIELDS = ("name", "source", "dtype", "fused_loss", "remat")
 
 
 def config(c: Dict, device: str = "cuda"):
     """The port's config of file `c` as run (`harness.load_config`;
-    `port_arch`), with the training options the file states; raises if any
-    size differs from the file's. On the CPU (tests) the file may ask for
-    float32."""
+    `port_arch`), with the training options the file states. Raises if a
+    field the architecture maps from a file key (`PORT_FIELDS`; a null in
+    the file stands for the field's default) differs from the file, or if
+    any other field is off its default where the architecture's layout
+    (`PORT_LAYOUT`) does not say so: a part the benchmark lacks. On the
+    CPU (tests) the file may ask for float32."""
     from repro_torch import get_config
     cfg = dataclasses.replace(get_config(c["port_arch"]),
                               fused_loss=bool(c["fused_loss"]),
                               remat=bool(c["remat"]))
     if c["torch_dtype"] == "float32":
         cfg = dataclasses.replace(cfg, dtype=torch.float32)
-    want = dict(_WIDTHS)
-    want.update(_MOE if c.get("num_local_experts") else
-                {"intermediate_size": "d_ff"})
-    bad = {k: (c[k], getattr(cfg, f)) for k, f in want.items()
-           if c[k] != getattr(cfg, f)}
-    if cfg.use_qk_norm or cfg.n_shared_experts or cfg.n_dense_layers \
-            or not cfg.use_value_head or cfg.arch_type not in ("dense", "moe"):
-        bad["layout"] = "the port's config has parts the benchmark lacks"
+    a = arch.of(c)
+    bad = {}
+    for f in dataclasses.fields(cfg):
+        got = getattr(cfg, f.name)
+        if f.name in HARNESS_FIELDS:
+            continue
+        if f.name in a.PORT_FIELDS:
+            key = a.PORT_FIELDS[f.name]
+            want = f.default if c[key] is None else c[key]
+            if got != want:
+                bad[key] = (c[key], got)
+        elif f.name in a.PORT_LAYOUT:
+            if got != a.PORT_LAYOUT[f.name]:
+                bad[f.name] = (a.PORT_LAYOUT[f.name], got)
+        elif f.default is dataclasses.MISSING or got != f.default:
+            bad[f.name] = ("a part the benchmark lacks", got)
     if bad:
         raise SystemExit(f"{c['name']}: the port's config differs from the "
                          f"file: {bad}")

@@ -15,7 +15,8 @@ take: {"spans": [(name, start, end, parent, fields)] on the window clock,
 "counters": [(time, {counter: value})] sampled after every decode step,
 "busy": [(start, end)] or None, "kernel_starts": [start] or None (kernels
 alone, no copies), "t_lo", "t_hi": the traced window, and the map's
-figures from `device_activity`}. Without the
+figures from `device_activity`}. `run_driver` puts it in the record of
+every traced run (`run.py --trace 1`, `trace_program.py`). Without the
 recorder (a program that lacks it, or a run that did not turn it on) a
 reader finds nothing and returns None.
 """
@@ -41,26 +42,68 @@ def counters(eng) -> Optional[Dict[str, int]]:
     return {k: int(getattr(eng, k)) for k in COUNTERS}
 
 
+class Recording:
+    """The port's recorder over one run of a driver: on from the start,
+    with the engine's counters sampled after every decode step that the
+    driver's traced wrapper times (`harness.Spans.wrap_decode`)."""
+
+    def __init__(self):
+        from repro_torch import trace
+        self.trace = trace
+        self.samples: List[Tuple[float, Dict[str, int]]] = []
+        self.records: List[Tuple] = []
+        trace.take()
+        trace.enable()
+
+    def sample(self, eng) -> None:
+        c = counters(eng)
+        if c is not None:
+            self.samples.append((time.perf_counter(), c))
+
+    def stop(self) -> None:
+        self.trace.disable()
+        self.records = self.trace.take()
+
+    def program(self, rec: Dict, clock: harness.Clock) -> Dict:
+        """The record's `program` entry (module docstring), with the
+        device's activity of a profiled window (`harness.Profile`) mapped
+        onto the window's clock."""
+        t_hi = rec.get("t_prof_end") or rec["t_close"]
+        p = {"spans": on_window(self.records, clock),
+             "counters": [(clock.window_of(t), c) for t, c in self.samples],
+             "busy": None, "kernel_starts": None, "t_lo": rec["t_open"],
+             "t_hi": t_hi}
+        prof = rec.get("traced")
+        if prof:
+            p.update(device_activity(
+                prof["acts"], prof["ends"], sync_points(self.records), clock,
+                p["t_lo"], t_hi, prof["t_mark"]))
+        return p
+
+
+def run_driver(driver, ctx: Dict, recorder: bool) -> Dict:
+    """`driver.run(ctx)`; with `recorder`, under a `Recording` (the
+    driver finds it as `ctx["recording"]`), and the record gains
+    `program`."""
+    if not recorder:
+        return driver.run(ctx)
+    recording = Recording()
+    try:
+        rec = driver.run(dict(ctx, recording=recording))
+    finally:
+        recording.stop()
+    rec["program"] = recording.program(rec, ctx["clock"])
+    return rec
+
+
 def on_window(records, clock: harness.Clock) -> List[Tuple]:
     """The recorder's records with start and end on the window clock."""
     return [(n, clock.window_of(a), clock.window_of(b), p, f)
             for n, a, b, p, f in records]
 
 
-def end_mark() -> float:
-    """A mark for the trace's clock taken by its end: the host's time when
-    a sync on an idle card returns from a short sleep kernel. The mark of
-    `harness.profile_start` is taken by its start, at the host's time
-    before the launch, which puts the kernels early by the launch's own
-    time (the first launch under the profiler is slow)."""
-    import torch
-    torch.cuda.synchronize()
-    torch.cuda._sleep(1000)
-    torch.cuda.synchronize()
-    return time.perf_counter()
-
-
-SYNC_TOL = 2e-3  # how far the line through the marks may place a copy
+SYNC_TOL = 2e-3   # how much earlier than its return a read's copy may map
+TRACK_TOL = 5e-4  # how much later: the offset moves little from one read on
 
 
 def sync_points(records) -> List[float]:
@@ -75,6 +118,22 @@ def sync_points(records) -> List[float]:
     return out
 
 
+def _track(copies: Sequence[float], syncs: Sequence[float],
+           off: float) -> Dict[float, int]:
+    """Each host return in `syncs`, walked in the order given, paired with
+    the device-to-host copy (index into `copies`, their ends on the trace's
+    clock) that the clocks' offset `off` (host less trace) puts last before
+    it, within `TRACK_TOL` after and `SYNC_TOL` before; each pairing moves
+    the offset to its own."""
+    out = {}
+    for h in syncs:
+        j = bisect.bisect_right(copies, h - off + TRACK_TOL) - 1
+        if j >= 0 and h - (copies[j] + off) <= SYNC_TOL:
+            out[h] = j
+            off = h - copies[j]
+    return out
+
+
 def device_activity(acts, ends: Sequence[float], syncs: Sequence[float],
                     clock: harness.Clock, t_lo: float, t_hi: float,
                     t_mark: float) -> Dict:
@@ -84,26 +143,31 @@ def device_activity(acts, ends: Sequence[float], syncs: Sequence[float],
     trace's clock (`harness._kernels`). The trace's clock is mapped onto
     the host's piecewise linearly through anchors, each the end of the
     card's last work paired with the host's return from waiting for it:
-    the last two mark kernels (`end_mark`, host times `ends`), and each
-    host return in `syncs` with the device-to-host copy that the line
-    through the marks puts last before it (within `SYNC_TOL`). The line
-    alone leaves the trace's clock wandering by up to about a millisecond
-    between the marks; an anchor at every such decode step takes that out.
-    `mark_offset_us`: where `harness.profile_start`'s mark (host time
-    `t_mark` at its start) puts the kernels against the line, negative
-    when earlier; `wander_us`: the largest distance of an anchor from the
-    line."""
+    the last two mark kernels (`harness.end_mark`, host times `ends`), and
+    each host return in `syncs` between them with its device-to-host copy
+    (`_track`), found by walking the returns forward from the first mark
+    and backward from the second, each step from the offset of the read
+    before: the trace's clock can jump against the host's within a window
+    (by 2.3 ms once on the card, then running 570 ppm fast), which a line
+    through the marks spreads over the window and one walk does not cross.
+    A return that the two walks pair with different copies is left out.
+    `mark_offset_us`: where `harness.Profile`'s start mark (host time
+    `t_mark` at its start) puts the kernels against the line through the
+    end marks, negative when earlier; `wander_us`: the largest distance of
+    an anchor from that line."""
     marks = sorted((a, b) for n, a, b in acts
                    if any(k in n for k in harness.MARK_KERNELS))
     (d0, d1), (h0, h1) = [b for _, b in marks[-2:]], ends
     rate = (h1 - h0) / (d1 - d0)
     copies = sorted(b for n, _, b in acts if n.startswith("Memcpy DtoH"))
-    on_line = [h0 + (b - d0) * rate for b in copies]
+    syncs = sorted(h for h in syncs if h0 < h < h1)
+    walks = (_track(copies, syncs, h0 - d0),
+             _track(copies, syncs[::-1], h1 - d1))
     anchors = {d0: h0, d1: h1}
     for h in syncs:
-        j = bisect.bisect_right(on_line, h + SYNC_TOL) - 1
-        if j >= 0 and h - on_line[j] <= SYNC_TOL:
-            anchors.setdefault(copies[j], h)
+        found = {w[h] for w in walks if h in w}
+        if len(found) == 1:
+            anchors.setdefault(copies[found.pop()], h)
     dev = np.array(sorted(anchors))
     host = np.array([anchors[d] for d in dev])
     wander = np.abs(host - (h0 + (dev - d0) * rate)).max()

@@ -4,10 +4,15 @@ drivers hand it plain arrays and the weights they kept.
 
 `control=True` puts the reference itself in float8 in the program's
 place: every weight matrix rounded to e4m3 with one scale per output
-column, and every input of a weight product and every query, key and
-value with one scale per row (the operands of float8 matrix products and
-a float8 attention, with a float8 cache). The readings it gives are the
-control's, which a limit must fail.
+column (of a layer's slice of a stacked leaf), and every input of a weight
+product and every query, key and value with one scale per row (the
+operands of float8 matrix products and a float8 attention, with a float8
+cache). The readings it gives are the control's, which a limit must fail.
+
+The reference reads the seed's weights in the type they are served in and
+takes each to float32 where it is used (the architecture's
+`Model.weight`): the same numbers as a float32 copy of the tree, without
+the copy's memory.
 """
 from __future__ import annotations
 
@@ -16,19 +21,21 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from rlbench import weights
+from rlbench import arch, weights
 from rlbench.reference import rl
-from rlbench.reference.model import Model, exact_float32
+from rlbench.reference.model import exact_float32
 from rlbench.reference.replay import replay
 
 
-def fp8_round(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to float8 e4m3 with one absmax scale for each index of
-    its first and last axes (for a stacked leaf, a layer's slice of an
-    output column), back in float32; a vector is kept."""
+def fp8_cols(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to float8 e4m3 with one absmax scale for each index of its
+    last axis (an output column), back in float32. The reference applies it
+    to each weight as read (`Model.weight`: a layer's slice of a stacked
+    leaf), so a scale covers one layer's column; a vector (a norm's scale)
+    is kept, as a float8 product keeps it outside the product."""
     if x.dim() < 2:
         return x
-    dims = tuple(range(1, x.dim() - 1)) if x.dim() > 2 else (0,)
+    dims = tuple(range(x.dim() - 1))
     amax = x.abs().amax(dim=dims, keepdim=True).clamp(min=1e-12)
     scale = 448.0 / amax
     return (x * scale).to(torch.float8_e4m3fn).to(torch.float32) / scale
@@ -42,20 +49,15 @@ def fp8_rows(x: torch.Tensor) -> torch.Tensor:
     return (x * scale).to(torch.float8_e4m3fn).to(torch.float32) / scale
 
 
-def fp8_tree(c: Dict, tree: Dict) -> Dict:
-    return weights.tree_of(c, [fp8_round(x) for _, x in
-                               weights.leaves(tree, c)])
-
-
-def fp8_model(c: Dict, tree: Dict) -> Model:
-    return Model(c, fp8_tree(c, tree), act=fp8_rows)
+def fp8_model(c: Dict, tree: Dict):
+    return arch.model(c, tree, act=fp8_rows, quant=fp8_cols)
 
 
 def _f32(c: Dict, tensors: List[torch.Tensor], dev) -> Dict:
     return weights.tree_of(c, [x.to(dev, torch.float32) for x in tensors])
 
 
-def full_logprobs(model: Model, tokens: np.ndarray, dev) -> np.ndarray:
+def full_logprobs(model, tokens: np.ndarray, dev) -> np.ndarray:
     """Each position's logprob of its token under the prefix before it."""
     t = torch.as_tensor(np.asarray(tokens), device=dev, dtype=torch.long)[None]
     with torch.no_grad():
@@ -64,7 +66,7 @@ def full_logprobs(model: Model, tokens: np.ndarray, dev) -> np.ndarray:
     return lp[0].double().cpu().numpy()
 
 
-def _rollout_loss(model: Model, ref_model: Model, rows: List[Dict],
+def _rollout_loss(model, ref_model, rows: List[Dict],
                   t: Dict, dev) -> float:
     """The loss of one optimizer step on `rows` (reference rewards from
     the frozen initial weights), without gradients."""
@@ -73,7 +75,7 @@ def _rollout_loss(model: Model, ref_model: Model, rows: List[Dict],
         return float(rl.loss_of(model, batch, t["rl"]))
 
 
-def _batch(ref_model: Model, rows: List[Dict], t: Dict, dev) -> Dict:
+def _batch(ref_model, rows: List[Dict], t: Dict, dev) -> Dict:
     """A step's rows as (n, T) tensors with the reference's KL-shaped
     rewards. Rows of unequal length are right-padded and masked."""
     T = max(len(r["tokens"]) for r in rows)
@@ -117,8 +119,8 @@ def rollout_numbers(c: Dict, seed: int, dev, sample: List[Dict],
     logprobs. With `control`, the float8 reference's forward stands in
     for both."""
     exact_float32()
-    p0 = weights.make_params(c, seed, dev, dtype=torch.float32)
-    m0 = Model(c, p0)
+    p0 = weights.make_params(c, seed, dev)
+    m0 = arch.model(c, p0)
     m0_q = fp8_model(c, p0) if control else None
     eng, pre = [], []
     for r in sample:
@@ -152,7 +154,7 @@ def loop_numbers(c: Dict, t: Dict, seed: int, dev, sample: List[Dict],
     window's first optimizer-step loss and the reference's loss of the
     same rollouts under the weights that step started from."""
     exact_float32()
-    p0 = weights.make_params(c, seed, dev, dtype=torch.float32)
+    p0 = weights.make_params(c, seed, dev)
     missing = sorted({int(v) for r in sample for v in
                       np.concatenate([[r["admit_version"]],
                                       r["stamps"][r["prompt_len"]:]])
@@ -166,7 +168,7 @@ def loop_numbers(c: Dict, t: Dict, seed: int, dev, sample: List[Dict],
     def weights_of(v: int) -> Dict:
         return p0 if v == 0 else _f32(c, versions[v], dev)
 
-    m0 = Model(c, p0)
+    m0 = arch.model(c, p0)
     m0_q = fp8_model(c, p0) if control else None
     diffs = []
     for r in sample:
@@ -180,7 +182,8 @@ def loop_numbers(c: Dict, t: Dict, seed: int, dev, sample: List[Dict],
     if missing or not sample:
         out.update(engine_lp_gap=np.inf, engine_lp_rms=np.inf)
     else:
-        ref = replay(c, lambda v: Model(c, weights_of(v)), sample, dev)
+        ref = replay(c, lambda v: arch.model(c, weights_of(v)), sample,
+                     dev)
         if control:
             got = replay(c, lambda v: fp8_model(c, weights_of(v)), sample,
                          dev)
@@ -189,7 +192,8 @@ def loop_numbers(c: Dict, t: Dict, seed: int, dev, sample: List[Dict],
         out.update(_gaps("engine_lp", [a - b for a, b in zip(got, ref)]))
     if pre_version in versions or pre_version == 0:
         w = weights_of(pre_version)
-        ref_loss = _rollout_loss(Model(c, w), m0, step_rows, t, dev)
+        ref_loss = _rollout_loss(arch.model(c, w), m0, step_rows, t,
+                                 dev)
         if control:
             step_loss = _rollout_loss(fp8_model(c, w), m0, step_rows, t,
                                       dev)
@@ -205,14 +209,15 @@ def _ref_train(c: Dict, t: Dict, seed: int, dev, steps: List[List[Dict]],
     """The reference's first steps from the seed's weights: each step's
     loss, the first Adam moment's and the first gradient's norm by leaf,
     and the weights' change by leaf."""
-    p32 = weights.make_params(c, seed, dev, dtype=torch.float32)
-    ref_model = Model(c, p32)
-    batches = [_batch(ref_model, rows, t, dev) for rows in steps]
-    del ref_model
+    p0 = weights.make_params(c, seed, dev)
+    batches = [_batch(arch.model(c, p0), rows, t, dev) for rows in steps]
+    # Adam's float32 weights, which the steps update in place: a copy
+    # even of a leaf that is float32 already
+    p32 = weights.tree_of(c, [x.to(torch.float32, copy=True)
+                              for _, x in weights.leaves(p0, c)])
     got = rl.train_steps(c, p32, batches, t["rl"], t["adam"], rows=1,
                          quant=quant, act=fp8_rows if quant else None)
     del batches
-    p0 = weights.make_params(c, seed, dev)
     got["change"] = {n: float((x - y.float()).norm()) for (n, x), (_, y)
                      in zip(weights.leaves(p32, c), weights.leaves(p0, c))}
     return got
@@ -235,7 +240,7 @@ def train_numbers(c: Dict, t: Dict, seed: int, dev, steps: List[List[Dict]],
     exact_float32()
     ref = _ref_train(c, t, seed, dev, steps)
     if control:
-        prog = _ref_train(c, t, seed, dev, steps, quant=fp8_round)
+        prog = _ref_train(c, t, seed, dev, steps, quant=fp8_cols)
     names = list(ref["m1"])
 
     def leaf_gaps(p: Dict, r: Dict, keep) -> Dict[str, float]:

@@ -20,8 +20,6 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
-from rlbench.reference.model import Model
-
 
 def position_versions(n_tokens: int, prompt_len: int, admit_version: int,
                       stamps: np.ndarray) -> np.ndarray:
@@ -32,7 +30,7 @@ def position_versions(n_tokens: int, prompt_len: int, admit_version: int,
     return out
 
 
-def replay(c: Dict, model_of: Callable[[int], Model],
+def replay(c: Dict, model_of: Callable[[int], object],
            rollouts: List[Dict], device) -> List[np.ndarray]:
     """Reference logprobs of tokens P..n-1 of each rollout (dict: tokens,
     prompt_len, admit_version, stamps). `model_of(v)` gives the reference

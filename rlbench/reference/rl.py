@@ -11,7 +11,8 @@ The equations follow the port's `Preprocessor.process`, `reinforce_loss`
   applied after the Preprocessor has set token rewards, which the packed
   batch then carries, so it does not reach the loss);
 - loss = -mean_m(min(exp(cur - beh), clamp) * (r - v) * cur)
-         + value_coef * mean_m((r - v)^2) (+ aux_coef * aux for experts),
+         + value_coef * mean_m((r - v)^2) + aux_coef * aux (the
+  architecture's aux loss, a zero where it has none),
   the means over every completion token of the batch;
 - Adam: g scaled by min(1, clip / (|g| + 1e-9)), m = b1 m + (1 - b1) g,
   v = b2 v + (1 - b2) g^2, p -= lr m_hat / (sqrt(v_hat) + eps).
@@ -22,7 +23,7 @@ from typing import Dict, List
 
 import torch
 
-from rlbench.reference.model import Model
+from rlbench import arch
 from rlbench.weights import leaves, tree_of
 
 
@@ -32,7 +33,7 @@ def token_rewards(reward: torch.Tensor, beh, ref, mask, kl_coef: float):
     return reward[:, None] / n * mask - kl_coef * (beh - ref) * mask
 
 
-def shifted_logprobs(model: Model, hn, tokens, rows: int):
+def shifted_logprobs(model, hn, tokens, rows: int):
     """Per-position logprob of each token under the prefix before it (0 at
     position 0), as the port aligns `token_logprobs`."""
     tgt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
@@ -40,7 +41,7 @@ def shifted_logprobs(model: Model, hn, tokens, rows: int):
     return torch.cat([torch.zeros_like(lp[:, :1]), lp[:, :-1]], dim=1)
 
 
-def loss_of(model: Model, batch: Dict[str, torch.Tensor], rl: Dict,
+def loss_of(model, batch: Dict[str, torch.Tensor], rl: Dict,
             rows: int = 1) -> torch.Tensor:
     """The loss of one optimizer step on `batch` (rows = rollouts)."""
     tokens, mask = batch["tokens"], batch["mask"]
@@ -55,10 +56,8 @@ def loss_of(model: Model, batch: Dict[str, torch.Tensor], rl: Dict,
     adv = (r - values).detach()
     pg = -(clamped * adv * cur * mask).sum() / denom
     value_loss = ((r - values) ** 2 * mask).sum() / denom
-    loss = pg + rl["value_coef"] * value_loss
-    if model.E:
-        loss = loss + rl["aux_coef"] * aux
-    return loss
+    # the architecture's aux loss: a zero tensor where it has none
+    return pg + rl["value_coef"] * value_loss + rl["aux_coef"] * aux
 
 
 class Adam:
@@ -88,15 +87,20 @@ class Adam:
         return float(norm)
 
 
+def _through(f):
+    """`f` in the forward with the gradient passed straight through it."""
+    return f and (lambda x: x + (f(x) - x).detach())
+
+
 def train_steps(c: Dict, p32: Dict, batches: List[Dict[str, torch.Tensor]],
                 rl: Dict, opt: Dict, rows: int = 1, quant=None,
                 act=None) -> Dict:
     """Runs the steps of `batches` from the float32 weights `p32` (updated
     in place). Returns each step's loss and global gradient norm, and the
     first step's first Adam moment and gradient by leaf (name -> norm).
-    `quant`, when given, rounds every weight the forward reads and `act`
-    every input of a weight product (the gradient passes straight
-    through)."""
+    `quant`, when given, rounds every weight as the forward reads it (a
+    layer's slice, `Model.weight`) and `act` every input of a weight
+    product; the gradient passes straight through both."""
     names, ps = zip(*leaves(p32, c))
     for x in ps:
         x.requires_grad_(False)
@@ -105,10 +109,8 @@ def train_steps(c: Dict, p32: Dict, batches: List[Dict[str, torch.Tensor]],
     for i, batch in enumerate(batches):
         for x in ps:
             x.requires_grad_(True)
-        used = ps if quant is None else [x + (quant(x) - x).detach()
-                                         for x in ps]
-        model = Model(c, tree_of(c, list(used)), act=act and (
-            lambda x: x + (act(x) - x).detach()))
+        model = arch.model(c, tree_of(c, list(ps)), act=_through(act),
+                           quant=_through(quant))
         loss = loss_of(model, batch, rl, rows)
         grads = torch.autograd.grad(loss, ps)
         for x in ps:
@@ -118,5 +120,5 @@ def train_steps(c: Dict, p32: Dict, batches: List[Dict[str, torch.Tensor]],
         if i == 0:
             out["m1"] = {n: float(m.norm()) for n, m in zip(names, adam.m)}
             out["g1"] = {n: float(g.norm()) for n, g in zip(names, grads)}
-        del grads, loss, model, used
+        del grads, loss, model
     return out

@@ -10,34 +10,24 @@ from typing import Dict
 
 import torch
 
-TINY = {"num_hidden_layers": 2, "hidden_size": 64, "num_attention_heads": 4,
-        "num_key_value_heads": 2, "head_dim": 16, "vocab_size": 96,
-        "torch_dtype": "float32"}
-_FIELDS = {"num_hidden_layers": "n_layers", "hidden_size": "d_model",
-           "num_attention_heads": "n_heads",
-           "num_key_value_heads": "n_kv_heads",
-           "head_dim": "d_head", "vocab_size": "vocab_size",
-           "intermediate_size": "d_ff"}
+from rlbench import arch
 
 
 def tiny_config(c: Dict) -> Dict:
-    """Configuration `c` (as run) at the tiny size, in float32."""
-    t = dict(c, **TINY)
-    moe = bool(c.get("num_local_experts"))
-    t["intermediate_size"] = 32 if moe else 128
-    if moe:
-        t["num_local_experts"], t["num_experts_per_tok"] = 8, 2
-    return t
+    """Configuration `c` (as run) at its architecture's tiny size (`TINY`),
+    in float32."""
+    return dict(c, **arch.of(c).TINY, torch_dtype="float32")
 
 
 @contextlib.contextmanager
 def tiny_port(t: Dict):
     """Inside the block the port's `get_config` gives every architecture
-    at the sizes of the tiny configuration `t`."""
+    with the fields that the tiny configuration `t` sizes (its
+    architecture's `PORT_FIELDS` whose file keys are in `TINY`) at `t`'s
+    values."""
     import repro_torch
-    shrink = {f: t[k] for k, f in _FIELDS.items()}
-    if t.get("num_local_experts"):
-        shrink.update(d_ff=32, moe_d_ff=32, n_experts=8, experts_per_token=2)
+    a = arch.of(t)
+    shrink = {f: t[k] for f, k in a.PORT_FIELDS.items() if k in a.TINY}
 
     def make(raw):
         return lambda name: dataclasses.replace(raw(name), **shrink)

@@ -11,7 +11,9 @@ configuration (`rlbench/configs/<config>.json`) and traffic mix
 (`rlbench/limits/<cell>.json`). Prints the checks' numbers beside their
 limits as the last lines of standard error and one JSON result as the
 last line of standard output. With `--trace 0` the metrics are the cell's
-end-to-end metrics, with `--trace 1` its per-layer metrics.
+end-to-end metrics, with `--trace 1` its per-layer metrics, read from the
+benchmark's own host spans, the profiler's trace of the window's first
+batches and the program's own spans and counters (`rlbench/program.py`).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
@@ -92,6 +95,51 @@ def breakdown(traced: dict) -> dict:
             "idle_gaps": [[k, v] for k, v in gaps]}
 
 
+def needs_cards(cell: dict) -> bool:
+    """False, with the reason on standard error, where this machine lacks
+    the CUDA cards the cell asks for."""
+    import torch
+    found = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if found < cell["chips"]:
+        print(f"rlbench: {cell['name']} needs {cell['chips']} CUDA card(s); "
+              f"found {found}", file=sys.stderr)
+        return False
+    return True
+
+
+def context(cell: dict, seed: int, seconds: float, trace: bool,
+            control: bool = False, t_start: float = T_START) -> tuple:
+    """(the driver's context, its module, the cell's limits), from the
+    files that the cell names."""
+    from rlbench import harness
+    mix = harness.load_json(f"rlbench/traffic/{cell['traffic']}.json")
+    ctx = {"config": harness.load_config(
+               f"rlbench/configs/{cell['config']}.json"),
+           "traffic": mix, "seed": seed, "seconds": seconds, "trace": trace,
+           "device": "cuda", "control": control,
+           "clock": harness.Clock(t_start)}
+    driver = harness.load_module(
+        ROOT / "rlbench" / "drivers" / f"{mix['driver']}.py",
+        f"rlbench_driver_{mix['driver']}")
+    return ctx, driver, harness.load_json(f"rlbench/limits/{cell['name']}.json")
+
+
+def read_metrics(bench: dict, cell: dict, rec: dict, kind: str) -> dict:
+    """{name: value} of the cell's metrics of `kind`, each read by its
+    reader (`rlbench/metrics/<name>.py`); None where it found nothing."""
+    from rlbench import harness
+    out = {}
+    for m in metrics_for(bench, cell["name"], kind):
+        if m["name"] == "setup_s":
+            out["setup_s"] = rec["setup_s"]
+            continue
+        reader = harness.load_module(
+            ROOT / "rlbench" / "metrics" / f"{m['name']}.py",
+            "rlbench_metric_" + m["name"].replace(".", "_"))
+        out[m["name"]] = reader.read(rec)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
@@ -109,32 +157,20 @@ def main(argv=None) -> int:
     _setup_env()
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     cell = cell_of(bench, args.workload)
-
-    import torch
-    if not torch.cuda.is_available() \
-            or torch.cuda.device_count() < cell["chips"]:
-        found = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        print(f"rlbench: {cell['name']} needs {cell['chips']} CUDA card(s); "
-              f"found {found}", file=sys.stderr)
+    if not needs_cards(cell):
         return 2
 
-    from rlbench import flops, harness
-    config = harness.load_config(f"rlbench/configs/{cell['config']}.json")
-    mix = harness.load_json(f"rlbench/traffic/{cell['traffic']}.json")
-    limits = harness.load_json(f"rlbench/limits/{cell['name']}.json")
-    driver = harness.load_module(
-        ROOT / "rlbench" / "drivers" / f"{mix['driver']}.py",
-        f"rlbench_driver_{mix['driver']}")
-    ctx = {"config": config, "traffic": mix, "seed": args.seed,
-           "seconds": args.seconds, "trace": bool(args.trace),
-           "device": "cuda", "control": args.control,
-           "clock": harness.Clock(T_START)}
+    import torch
+    from rlbench import flops, program
+    ctx, driver, limits = context(cell, args.seed, args.seconds,
+                                  bool(args.trace), args.control)
+    planted = contextlib.nullcontext()
     if args.fault:
         from rlbench import rehearse
-        with getattr(rehearse, args.fault)():
-            rec = driver.run(ctx)
-    else:
-        rec = driver.run(ctx)
+        planted = getattr(rehearse, args.fault)()
+    # a traced run records the program's own spans and counters too
+    with planted:
+        rec = program.run_driver(driver, ctx, bool(args.trace))
     torch.cuda.synchronize()
     print(json.dumps({"setup_s": rec["setup_s"],
                       "setup_parts": rec["setup_parts"],
@@ -142,21 +178,10 @@ def main(argv=None) -> int:
                       "power_limit": flops.card_power_limit()},
                      default=str), flush=True)
 
-    if args.trace:
-        wanted = metrics_for(bench, cell["name"], "per_layer")
-    else:
-        wanted = metrics_for(bench, cell["name"], "end_to_end")
-    metrics = {}
-    for m in wanted:
-        if m["name"] == "setup_s":
-            value = rec["setup_s"]
-        else:
-            reader = harness.load_module(
-                ROOT / "rlbench" / "metrics" / f"{m['name']}.py",
-                "rlbench_metric_" + m["name"].replace(".", "_"))
-            value = reader.read(rec)
-        if value is not None:
-            metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    kind = "per_layer" if args.trace else "end_to_end"
+    units = {m["name"]: m["unit"] for m in bench[kind]}
+    metrics = {name: {"value": v, "unit": units[name]} for name, v in
+               read_metrics(bench, cell, rec, kind).items() if v is not None}
 
     bad = loaded_forbidden()
     if bad:

@@ -120,7 +120,8 @@ def top_level_imports(path):
 
 
 @pytest.mark.parametrize("path", sorted(
-    p.name for p in (ROOT / "rlbench/reference").glob("*.py")) + [
+    p.name for p in (ROOT / "rlbench/reference").glob("*.py")) + sorted(
+    "../arch/" + p.name for p in (ROOT / "rlbench/arch").glob("*.py")) + [
     "../weights.py", "../flops.py", "../traffic.py"])
 def test_reference_imports_nothing_of_the_program(path):
     got = top_level_imports(ROOT / "rlbench/reference" / path)

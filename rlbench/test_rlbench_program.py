@@ -1,9 +1,10 @@
 """The readers of the program's own spans and counters (`rlbench/program.py`
 and `rlbench/metrics/`) on canned records, the attribution of the card's
 idle time to the innermost span by overlap, and a CPU rehearsal of a traced
-rollout run with the program's recorder on (`trace_program.run_recorded`),
+rollout run with the program's recorder on (`program.run_driver`),
 whose record holds the program's spans and counters."""
 import importlib.util
+import json
 from pathlib import Path
 
 import pytest
@@ -13,6 +14,11 @@ from rlbench import harness, program, rehearse, trace_program
 from rlbench.drivers import rollout
 
 ROOT = Path(__file__).resolve().parent.parent
+# the per-layer metrics of BENCHMARK.json read from the program's spans and
+# counters or from the device trace
+TRACED = [m["name"] for m in json.loads(
+    (ROOT / "BENCHMARK.json").read_text())["per_layer"]
+    if m["source"] in ("program_span", "program_counter", "device_trace")]
 
 
 def reader(name):
@@ -162,6 +168,56 @@ def test_device_activity_maps_the_trace_through_its_anchors():
                                     for a in (3.0, 3.8)]
 
 
+def test_device_activity_follows_a_jump_of_the_trace_clock():
+    """The trace's clock jumps 5 ms against the host's between two decode
+    steps' reads: the walk from the first end mark pairs the reads before
+    the jump, the walk back from the second those after it, and every
+    kernel maps onto the host's clock as the reads around it place it (a
+    line through the end marks puts the reads after the jump too far off
+    to pair)."""
+    copy = "Memcpy DtoH (Device -> Pageable)"
+    acts = [("spin_kernel", 1.0, 1.000001), ("spin_kernel", 2.0, 2.000001)]
+    acts += [(copy, d - 1e-4, d) for d in (3.0, 4.0, 5.0, 6.0)]
+    acts += [("gemm", 3.5, 3.6), ("gemm", 5.5, 5.6),
+             ("spin_kernel", 9.0, 9.000001)]
+
+    def host(d):            # 40 us of wake-up after each end of work
+        return d + 100.0 + (5e-3 if d > 4.5 else 0.0) + 40e-6
+
+    got = program.device_activity(
+        acts, [host(2.000001), host(9.000001)],
+        [host(d) for d in (3.0, 4.0, 5.0, 6.0)], harness.Clock(t0=100.0),
+        2.5, 8.0, t_mark=host(1.0))
+    assert got["anchors"] == 6
+    assert got["kernel_starts"] == [pytest.approx(host(a) - 100.0, abs=1e-9)
+                                    for a in (3.5, 5.5)]
+    busy = [(host(a) - 100.0, host(b) - 100.0) for a, b in
+            [(3.5, 3.6), (5.5, 5.6)]]
+    for b in busy:
+        assert any(x == pytest.approx(b[0], abs=1e-9) and
+                   y == pytest.approx(b[1], abs=1e-9) for x, y in got["busy"])
+
+
+def test_one_misplaced_reading_among_many_fails_the_alignment():
+    """The gate is strict: one step of twenty read outside `ALIGN_S` (as a
+    jump of the trace's clock between two anchors would put it) leaves the
+    idle shares out, since its idle time would go to the wrong span."""
+    spans, busy, starts = [], [], []
+    for i in range(20):
+        t = 0.1 * i
+        _step(spans, t, (0.01, 0.02, 0.03, 0.01))
+        busy.append((t + 0.02, t + 0.06))
+        starts.append(t + 0.02)
+    p = {"spans": spans, "busy": busy, "kernel_starts": starts,
+         "t_lo": 0.0, "t_hi": 2.0}
+    assert len(program.kernel_leads(p)) + len(program.wait_slacks(p)) == 40
+    assert program.aligned(p)
+    late = lambda i: (busy[i][0] + 1e-4, busy[i][1] + 1e-4)  # noqa: E731
+    p["busy"] = [late(i) if i == 7 else b for i, b in enumerate(busy)]
+    assert not program.aligned(p)
+    assert reader("device.idle.enqueue")({"program": p}) is None
+
+
 def test_sync_points_are_the_reads_of_steps_that_finished_nothing():
     recs = [("engine.step", 0.0, 1.0, -1, {}),
             ("engine.step.wait", 0.5, 0.6, 0, {}),
@@ -172,7 +228,7 @@ def test_sync_points_are_the_reads_of_steps_that_finished_nothing():
     assert program.sync_points(recs) == [0.6]
 
 
-@pytest.mark.parametrize("name", trace_program.PROGRAM_METRICS)
+@pytest.mark.parametrize("name", TRACED)
 def test_nothing_to_read_gives_none(name):
     assert reader(name)({}) is None
     rec = canned()
@@ -190,7 +246,7 @@ def test_rehearsed_rollout_records_the_programs_spans():
            "trace": True, "device": "cpu", "control": False,
            "clock": harness.Clock()}
     with rehearse.tiny_port(c):
-        rec = trace_program.run_recorded(rollout, ctx)
+        rec = program.run_driver(rollout, ctx, True)
     p = rec["program"]
     names = {s[0] for s in p["spans"]}
     assert {"engine.step", "engine.refill", "pre.process",
@@ -212,6 +268,26 @@ def test_rehearsed_rollout_records_the_programs_spans():
     assert d["prefill_tokens"] == arith["useful"]
     assert reader("engine.prefill_useful_share")(rec) == pytest.approx(
         100 * arith["useful"] / arith["row_tokens"])
-    # on the CPU there is no device trace
+    # on the CPU there is no device trace: the idle shares read nothing
     assert reader("device.idle.enqueue")(rec) is None
+    assert reader("device.idle.step_host")(rec) is None
     assert rec["checks"]["rollouts_unchecked"] == 0
+
+
+def test_untraced_rehearsal_records_nothing_of_the_program():
+    """`--trace 0` runs as before: the recorder off, no counter samples,
+    no `program` entry."""
+    from repro_torch import trace
+    torch.set_num_threads(2)
+    c = rehearse.tiny_config(
+        harness.load_config("rlbench/configs/granite-3-2b.json"))
+    t = rehearse.tiny_rollout_traffic(
+        harness.load_json("rlbench/traffic/rollout-grpo512.json"))
+    ctx = {"config": c, "traffic": t, "seed": 2 ** 31 + 9, "seconds": 0.3,
+           "trace": False, "device": "cpu", "control": False,
+           "clock": harness.Clock()}
+    trace.take()
+    with rehearse.tiny_port(c):
+        rec = program.run_driver(rollout, ctx, False)
+    assert "program" not in rec and trace.take() == []
+    assert rec["spans"] == [] and rec["decode"] == []

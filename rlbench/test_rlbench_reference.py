@@ -1,17 +1,19 @@
 """The plain reference against the port's own plain path (the kernels'
 plain versions on the CPU), at a tiny size, on the benchmark's weights:
-logits, the RL loss and its gradients, one Adam step; dense and MoE."""
+logits, the RL loss and its gradients, one Adam step; for every
+configuration file, whatever its architecture."""
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from rlbench import harness, port, rehearse, weights
+from rlbench import arch, harness, port, rehearse, weights
 from rlbench.reference import rl
-from rlbench.reference.model import Model
 
-CONFIGS = ("granite-3-2b", "granite-moe-1b-a400m")
+CONFIGS = sorted(p.stem for p in (Path(__file__).resolve().parent
+                                  / "configs").glob("*.json"))
 
 
 def tiny(name):
@@ -40,7 +42,7 @@ def test_logits_match_port(name):
     tok = torch.as_tensor(batch(c)[0])
     pos = torch.arange(tok.shape[1])[None].expand_as(tok)
     want = M.forward(p, tok, pos, dataclasses.replace(cfg, fused_loss=False))
-    ref = Model(c, p)
+    ref = arch.model(c, p)
     hn, aux = ref.hidden(tok)
     got = hn @ p["lm_head"]
     torch.testing.assert_close(got, want["logits"], rtol=1e-4, atol=1e-5)

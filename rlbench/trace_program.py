@@ -1,27 +1,23 @@
-"""Run one cell once with the program's own recorder, and read the
-program's spans and counters beside the benchmark's metrics:
+"""Run one cell once as `run.py` runs it, with the program's own recorder
+switched apart from the trace, and summarise what the program's spans and
+counters say:
 
     python3 rlbench/trace_program.py --workload <cell> --seed <n> \
         --seconds <s> --trace <0|1> [--recorder <0|1>]
 
-The cell runs through its driver as `run.py` runs it. With `--recorder 1`
-(the default) the port's recorder (`repro_torch.trace`) is on for the
-whole run and the engine's counters are sampled after every decode step;
-with `--trace 1` the device's busy intervals and kernel starts of the
-profiled window are kept too (`rlbench/program.py`). The last line of
-standard output is one JSON result: `correct`, the cell's metrics (the
-end-to-end ones with `--trace 0`, the per-layer ones with `--trace 1`)
-and, under `program`, the metrics of the program's own spans and counters
-(`PROGRAM_METRICS`, read by `rlbench/metrics/<name>.py`), the decode
-step's split, the idle time of the card by innermost span, the traced
-window's counters and the alignment of the trace's clock. `--trace 0
---recorder 0` is `run.py`'s untraced run; `--recorder 1` beside it costs
-the recorder.
-
-The driver builds the engine and opens the profiled window itself; this
-script sees both by standing in for `repro_torch.GenerationEngine` (a
-subclass that samples the counters after each step) and for
-`harness.profile_summary` (which also keeps the device's activity).
+The run goes through `run.py`'s set-up (`run.context`) and
+`program.run_driver`: with `--recorder 1` (the default) the port's
+recorder (`repro_torch.trace`) is on for the whole run and, with `--trace
+1`, the engine's counters are sampled after every decode step and the
+device's busy intervals and kernel starts of the profiled window kept
+(`rlbench/program.py`), as in every `run.py --trace 1` run. The last line
+of standard output is one JSON result: `correct`, the cell's metrics (the
+end-to-end ones with `--trace 0`, the per-layer ones with `--trace 1`,
+`run.read_metrics`) and, under `program`, the decode step's split, the idle
+time of the card by innermost span, the traced window's counters and the
+alignment of the trace's clock. `--trace 0 --recorder 0` is `run.py`'s
+untraced run; `--trace 1 --recorder 0` is a traced run without the
+recorder, and beside `--recorder 1` it costs the recorder.
 """
 from __future__ import annotations
 
@@ -36,84 +32,16 @@ ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-from rlbench import flops, harness, program, rehearse  # noqa: E402
+from rlbench import flops, program  # noqa: E402
 from rlbench import run as bench  # noqa: E402
-
-PROGRAM_METRICS = ("engine.step.host_ms", "device.idle.enqueue",
-                   "device.idle.step_host", "engine.prefill_useful_share",
-                   "engine.blocking_transfers_per_step")
-
-
-def run_recorded(driver, ctx, recorder: bool = True):
-    """`driver.run(ctx)` with the recorder on (or not); the record gains
-    `program` (module docstring of `rlbench/program.py`)."""
-    import repro_torch
-    from repro_torch import trace
-    clock = ctx["clock"]
-    samples, seen = [], {}
-
-    def make_engine(Engine):
-        class Sampled(Engine):
-            def step(self, *a, **k):
-                out = super().step(*a, **k)
-                c = program.counters(self)
-                if c is not None:
-                    samples.append((time.perf_counter(), c))
-                return out
-        return Sampled
-
-    def make_start(start):
-        def profile_start():
-            prof, t_mark = start()
-            seen["ends"] = [program.end_mark()]
-            return prof, t_mark
-        return profile_start
-
-    def make_summary(summary):
-        def profile_summary(prof, t_mark, clock_, t_lo, t_hi, spans):
-            seen["ends"].append(program.end_mark())
-            out = summary(prof, t_mark, clock_, t_lo, t_hi, spans)
-            seen.update(acts=harness._kernels(prof), t_mark=t_mark,
-                        t_hi=t_hi)
-            return out
-        return profile_summary
-
-    with rehearse.patched(repro_torch, "GenerationEngine", make_engine), \
-            rehearse.patched(harness, "profile_start", make_start), \
-            rehearse.patched(harness, "profile_summary", make_summary):
-        if recorder:
-            trace.take()
-            trace.enable()
-        try:
-            rec = driver.run(ctx)
-        finally:
-            if recorder:
-                trace.disable()
-    records = trace.take() if recorder else []
-    p = {"spans": program.on_window(records, clock),
-         "counters": [(clock.window_of(t), c) for t, c in samples],
-         "busy": None, "kernel_starts": None, "t_lo": rec["t_open"],
-         "t_hi": seen.get("t_hi", rec["t_close"])}
-    if "acts" in seen:
-        p.update(program.device_activity(
-            seen["acts"], seen["ends"], program.sync_points(records), clock,
-            p["t_lo"], p["t_hi"], seen["t_mark"]))
-    rec["program"] = p
-    return rec
 
 
 def program_summary(rec) -> dict:
     """What the program's spans and counters say about the traced window."""
     p = rec["program"]
-    metrics = {}
-    for name in PROGRAM_METRICS:
-        reader = harness.load_module(
-            ROOT / "rlbench" / "metrics" / f"{name}.py",
-            "rlbench_metric_" + name.replace(".", "_"))
-        metrics[name] = reader.read(rec)
     leads = [1e6 * x for x in program.kernel_leads(p)]
     slacks = [1e6 * x for x in program.wait_slacks(p)]
-    out = {"metrics": metrics, "step_ms": program.step_split(p),
+    out = {"step_ms": program.step_split(p),
            "kernel_lead_us": {"max": max(leads), "first": leads[0],
                               "last": leads[-1], "steps": len(leads)}
            if leads else None,
@@ -162,33 +90,16 @@ def main(argv=None) -> int:
     bench._setup_env()
     bj = json.loads((ROOT / "BENCHMARK.json").read_text())
     cell = bench.cell_of(bj, args.workload)
+    if not bench.needs_cards(cell):
+        return 2
 
     import torch
-    if not torch.cuda.is_available():
-        print("trace_program: needs a CUDA card", file=sys.stderr)
-        return 2
-    config = harness.load_config(f"rlbench/configs/{cell['config']}.json")
-    mix = harness.load_json(f"rlbench/traffic/{cell['traffic']}.json")
-    limits = harness.load_json(f"rlbench/limits/{cell['name']}.json")
-    driver = harness.load_module(
-        ROOT / "rlbench" / "drivers" / f"{mix['driver']}.py",
-        f"rlbench_driver_{mix['driver']}")
-    ctx = {"config": config, "traffic": mix, "seed": args.seed,
-           "seconds": args.seconds, "trace": bool(args.trace),
-           "device": "cuda", "control": False,
-           "clock": harness.Clock(T_START)}
-    rec = run_recorded(driver, ctx, bool(args.recorder))
+    ctx, driver, limits = bench.context(cell, args.seed, args.seconds,
+                                        bool(args.trace), t_start=T_START)
+    rec = program.run_driver(driver, ctx, bool(args.recorder))
     torch.cuda.synchronize()
-    kind = "per_layer" if args.trace else "end_to_end"
-    metrics = {}
-    for m in bench.metrics_for(bj, cell["name"], kind):
-        if m["name"] == "setup_s":
-            metrics["setup_s"] = rec["setup_s"]
-            continue
-        reader = harness.load_module(
-            ROOT / "rlbench" / "metrics" / f"{m['name']}.py",
-            "rlbench_metric_" + m["name"].replace(".", "_"))
-        metrics[m["name"]] = reader.read(rec)
+    metrics = bench.read_metrics(
+        bj, cell, rec, "per_layer" if args.trace else "end_to_end")
     correct, shown = bench.judge(rec["checks"], limits)
     out = {"workload": cell["name"], "seed": args.seed,
            "trace": args.trace, "recorder": args.recorder,

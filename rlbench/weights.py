@@ -4,71 +4,37 @@ type the model is served in. The plain reference calls the same function
 with the same seed to get the same numbers; it takes no weight from the
 program.
 
-Layout (the port's tree): `embed` (V, d), `final_norm` (d,), `lm_head`
-(d, V), `value_head` (d, 1) float32 zeros, and one group of stacked
-layers: `norm1`, `norm2` (L, d); `attn` {`wq` (L, d, H, Dh), `wk`, `wv`
-(L, d, KV, Dh), `wo` (L, H, Dh, d)}; dense `ffn` {`gate`, `up` (L, d, F),
-`down` (L, F, d)} or `moe` {`router` (L, d, E) float32, `gate`, `up`
-(L, E, d, F), `down` (L, E, F, d)}.
+The layout, the port's tree, is the architecture's
+(`rlbench/arch/<model_type>.py` `leaf_specs`).
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, List, Tuple
 
 import torch
+
+from rlbench import arch
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def leaf_specs(c: Dict) -> List[Tuple[Tuple[str, ...], tuple, str, float]]:
-    """(path, shape, dtype name, init scale) of every leaf, in draw order.
-    Scale: the std of a normal draw; 0.0 zeros; -1.0 ones."""
-    d, L = c["hidden_size"], c["num_hidden_layers"]
-    H, KV = c["num_attention_heads"], c["num_key_value_heads"]
-    Dh = c["head_dim"]
-    V, F = c["vocab_size"], c["intermediate_size"]
-    dt = c["torch_dtype"]
-    out_scale = 0.02 / math.sqrt(2 * L)
-    g = ("groups", "0")
-    specs = [
-        (("embed",), (V, d), dt, 0.02),
-        (("final_norm",), (d,), dt, -1.0),
-        (g + ("norm1",), (L, d), dt, -1.0),
-        (g + ("attn", "wq"), (L, d, H, Dh), dt, 0.02),
-        (g + ("attn", "wk"), (L, d, KV, Dh), dt, 0.02),
-        (g + ("attn", "wv"), (L, d, KV, Dh), dt, 0.02),
-        (g + ("attn", "wo"), (L, H, Dh, d), dt, out_scale),
-        (g + ("norm2",), (L, d), dt, -1.0),
-    ]
-    E = c.get("num_local_experts", 0)
-    if E:
-        specs += [
-            (g + ("moe", "router"), (L, d, E), "float32", 0.02),
-            (g + ("moe", "gate"), (L, E, d, F), dt, 0.02),
-            (g + ("moe", "up"), (L, E, d, F), dt, 0.02),
-            (g + ("moe", "down"), (L, E, F, d), dt, out_scale),
-        ]
-    else:
-        specs += [
-            (g + ("ffn", "gate"), (L, d, F), dt, 0.02),
-            (g + ("ffn", "up"), (L, d, F), dt, 0.02),
-            (g + ("ffn", "down"), (L, F, d), dt, out_scale),
-        ]
-    specs += [(("lm_head",), (d, V), dt, 0.02),
-              (("value_head",), (d, 1), "float32", 0.0)]
-    return specs
+    """(path, shape, dtype name, init scale) of every leaf, in draw order:
+    the architecture's layout. Scale: the std of a normal draw; 0.0 zeros;
+    -1.0 ones."""
+    return arch.of(c).leaf_specs(c)
 
 
 def _node(tree: Dict, path: Tuple[str, ...], make: bool):
-    """The dict that holds the leaf at `path` ("0" indexes the group
-    list)."""
+    """The dict that holds the leaf at `path` (a key of digits indexes the
+    list of layer groups: the port's `groups[i]`, one a kind of layer)."""
     node = tree
     for key in path[:-1]:
-        if key == "0":
-            if make and not node:
+        if key.isdigit():
+            i = int(key)
+            while make and len(node) <= i:
                 node.append({})
-            node = node[0]
+            node = node[i]
         else:
             node = node.setdefault(key, [] if key == "groups" else {}) \
                 if make else node[key]
