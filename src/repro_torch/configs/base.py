@@ -1,28 +1,40 @@
 """Model config for the PyTorch port: the fields of the JAX package's
 `ModelConfig` that the port reads, under the same names and with the same
-defaults, with a torch dtype.
+defaults, with a torch dtype, and two fields of its own.
 
 `arch_type` admits "dense" (the GQA decoder), "moe" (GQA or, with
 `use_mla`, DeepSeek-V3's multi-head latent attention, with routed
 experts), "ssm" (attention-free Mamba2 / SSD layers), "hybrid" (Hymba:
-attention and SSM heads in parallel in every layer), "vlm" and "audio"
-(the dense decoder behind a stubbed frontend's prefix embeddings). Left
-out: `router_aux_coef` (the JAX package reads it nowhere; the Trainer
-weighs the MoE loss by `RLConfig.aux_coef`) and `hybrid_parallel` (true
-exactly when `arch_type` is "hybrid").
+attention and SSM heads in parallel in every layer), "interleaved"
+(Granite 4.0-H: one token mixer a layer, GQA or Mamba2, in the order
+`layer_pattern` gives), "vlm" and "audio" (the dense decoder behind a
+stubbed frontend's prefix embeddings).
+
+The port's own fields, which the JAX package lacks and which every config
+of its registry holds at their defaults: `layer_pattern` ("A" an
+attention layer, "M" a Mamba2 layer, one letter a layer; only an
+"interleaved" config has one) and `position_embedding` ("rope", or
+"nope": GQA without a rotary embedding). Left out of the JAX fields:
+`router_aux_coef` (the JAX package reads it nowhere; the Trainer weighs
+the MoE loss by `RLConfig.aux_coef`) and `hybrid_parallel` (true exactly
+when `arch_type` is "hybrid").
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+# the port's own fields (module docstring), which the JAX package lacks
+PORT_OWN_FIELDS = ("position_embedding", "layer_pattern")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str  # dense | moe | ssm | hybrid | vlm | audio
+    arch_type: str  # dense | moe | ssm | hybrid | interleaved | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -33,6 +45,7 @@ class ModelConfig:
     # attention options
     use_qk_norm: bool = False
     rope_theta: float = 10000.0
+    position_embedding: str = "rope"  # rope | nope (no rotary embedding)
     attention_variant: str = "full"  # full | sliding_window (decode ring buffer)
     sliding_window: int = 8192
     # MLA (DeepSeek-V3 style multi-head latent attention)
@@ -57,6 +70,9 @@ class ModelConfig:
     ssm_head_dim: int = 64
     d_conv: int = 4
     expand: int = 2
+    # the "interleaved" layout: each layer's token mixer, "A" (attention)
+    # or "M" (Mamba2), one letter a layer
+    layer_pattern: str = ""
     # multimodal prefix (a stubbed frontend provides embeddings)
     modality: str = "text"  # text | vision | audio
     n_prefix_tokens: int = 0
@@ -78,6 +94,18 @@ class ModelConfig:
     fused_loss: bool = False
     source: str = ""
 
+    def __post_init__(self):
+        if (self.arch_type == "interleaved") != bool(self.layer_pattern) \
+                or len(self.layer_pattern) not in (0, self.n_layers) \
+                or set(self.layer_pattern) - set("AM"):
+            raise ValueError(
+                f"{self.name}: an interleaved config needs a layer_pattern "
+                f"of {self.n_layers} letters A and M, and no other config "
+                f"has one; got {self.layer_pattern!r}")
+        if self.position_embedding not in ("rope", "nope"):
+            raise ValueError(f"{self.name}: position_embedding "
+                             f"{self.position_embedding!r}")
+
     @property
     def d_inner(self) -> int:
         return self.expand * self.d_model
@@ -96,7 +124,39 @@ class ModelConfig:
 
     @property
     def has_ssm(self) -> bool:
-        return self.arch_type in ("ssm", "hybrid")
+        return self.arch_type in ("ssm", "hybrid", "interleaved")
+
+    @functools.cached_property
+    def mixers(self) -> str:
+        """Each layer's token mixer, one letter a layer: "A" attention, "M"
+        Mamba2, "H" both in parallel (Hymba). Resolved once a config."""
+        if self.layer_pattern:
+            return self.layer_pattern
+        return {"ssm": "M", "hybrid": "H"}.get(self.arch_type,
+                                               "A") * self.n_layers
+
+    @functools.cached_property
+    def mixer_ordinals(self) -> Tuple[Tuple[str, int], ...]:
+        """(token mixer, the layer's ordinal among that mixer's layers) of
+        each layer: where an interleaved config's layer sits in its mixer's
+        stacked parameters and caches. Resolved once a config."""
+        seen: Dict[str, int] = {}
+        out = []
+        for m in self.mixers:
+            out.append((m, seen.get(m, 0)))
+            seen[m] = seen.get(m, 0) + 1
+        return tuple(out)
+
+    @property
+    def n_attention_layers(self) -> int:
+        """The layers with attention, which the attention cache stacks."""
+        return sum(m != "M" for m in self.mixers)
+
+    @property
+    def n_ssm_layers(self) -> int:
+        """The layers with a Mamba2 mixer, which the conv and SSD state
+        stack."""
+        return sum(m != "A" for m in self.mixers)
 
     @property
     def supports_long_decode(self) -> bool:
@@ -110,19 +170,19 @@ class ModelConfig:
         `active_only` counts the k routed experts a token uses."""
         d = self.d_model
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        for li in range(self.n_layers):
+        for li, mixer in enumerate(self.mixers):
             n += 2 * d  # the two norms
-            if self.has_attention and self.use_mla:
+            if mixer != "M" and self.use_mla:
                 r, rope = self.kv_lora_rank, self.qk_rope_dim
                 n += d * self.q_lora_rank + self.q_lora_rank * self.n_heads * (
                     self.qk_nope_dim + rope)
                 n += d * (r + rope)
                 n += r * self.n_heads * (self.qk_nope_dim + self.v_head_dim)
                 n += self.n_heads * self.v_head_dim * d
-            elif self.has_attention:
+            elif mixer != "M":
                 n += 2 * d * self.n_heads * self.d_head  # q, o
                 n += 2 * d * self.n_kv_heads * self.d_head  # k, v
-            if self.has_ssm:
+            if mixer != "A":
                 di = self.d_inner
                 gn = 2 * self.ssm_n_groups * self.ssm_state
                 n += d * (2 * di + gn + self.n_ssm_heads)
@@ -155,17 +215,20 @@ def effective_cache_len(cfg: ModelConfig, seq_len: int) -> int:
 
 def kv_cache_specs(cfg: ModelConfig, batch: int,
                    cache_len: int) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """(shape, dtype) of each decode-state leaf, stacked over layers: the
-    attention cache `k`, `v` (L,B,CL,KV,Dh), or MLA's latent cache `c_kv`
-    (L,B,CL,r) and `k_rope` (L,B,CL,rope); and the SSM state `conv`
-    (L,B,d_conv-1,d_inner+2GN) in the model dtype and `ssd` (L,B,H,P,N)
-    in float32. A hybrid config holds all four."""
-    L = cfg.n_layers
+    """(shape, dtype) of each decode-state leaf, stacked over the layers
+    that hold it: the attention cache `k`, `v` (L,B,CL,KV,Dh), or MLA's
+    latent cache `c_kv` (L,B,CL,r) and `k_rope` (L,B,CL,rope), over the
+    attention layers; and the SSM state `conv` (L,B,d_conv-1,d_inner+2GN)
+    in the model dtype and `ssd` (L,B,H,P,N) in float32, over the Mamba2
+    layers. A hybrid or interleaved config holds all four (interleaved:
+    k and v over its attention layers alone, conv and ssd over the
+    rest)."""
     s: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
     if cfg.has_attention:
         cl = effective_cache_len(cfg, cache_len)
-        s.update(_attention_specs(cfg, (L, batch, cl)))
+        s.update(_attention_specs(cfg, (cfg.n_attention_layers, batch, cl)))
     if cfg.has_ssm:
+        L = cfg.n_ssm_layers
         s["conv"] = ((L, batch, cfg.d_conv - 1,
                       cfg.d_inner + 2 * cfg.ssm_n_groups * cfg.ssm_state),
                      cfg.dtype)
@@ -203,7 +266,8 @@ def paged_cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
                       n_pages: int, page_size: int
                       ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """(shape, dtype) of each paged decode-state leaf: the attention leaves
-    become page pools (L, n_pages, page_size, KV, Dh), MLA's (L, n_pages,
+    become page pools (L, n_pages, page_size, KV, Dh) over the attention
+    layers, MLA's (L, n_pages,
     page_size, r) and (..., rope), one physical page spanning every layer,
     so one host integer per logical block addresses both leaves. The
     (batch, n_blocks) block table lives on the host. SSM leaves are O(1)
@@ -212,7 +276,8 @@ def paged_cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
     s: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
     if cfg.has_attention:
         ps, _ = paged_layout(cfg, cache_len, page_size)
-        s.update(_attention_specs(cfg, (cfg.n_layers, n_pages, ps)))
+        s.update(_attention_specs(cfg, (cfg.n_attention_layers, n_pages,
+                                        ps)))
     if cfg.has_ssm:
         s.update({k: v for k, v in kv_cache_specs(cfg, batch,
                                                   cache_len).items()

@@ -26,6 +26,8 @@ machine under either setting, admission costing 0 pages. A hybrid config
 pages its attention leaves and keeps its conv and SSD rows per slot: a
 fork takes the leader's pages and a copy of its post-prefill rows. An MLA
 config's attention leaves are its latent `c_kv` and rope key `k_rope`.
+An interleaved config does as a hybrid one: its pool stacks its
+attention layers and its rows its Mamba2 layers.
 
 `mesh=` places the engine on a `DeviceMesh` (the JAX package's real-mesh
 engine): the parameters take the generation layout of their logical axes
@@ -779,18 +781,24 @@ class GenerationEngine:
         self._sync_tables()
         return len(copies)
 
-    def _copy_fork_rows(self, forks: List[Tuple[int, int]]) -> None:
+    def _copy_fork_rows(self, forks: List[Tuple[int, int]]) -> int:
         """Recurrent SSM state is per slot, not paged: each (fork, leader)
         fork takes a copy of the leader's post-prefill conv and ssd rows
-        (a hybrid config's; attention-only configs have none)."""
+        (a hybrid or interleaved config's, every Mamba2 layer's;
+        attention-only configs have none), a layer at a time: the gathered
+        rows of every layer at once would hold (layers x forks) SSD rows,
+        16.9 GB for granite-4.0-h-micro's 224 forks of a first refill.
+        Returns the slot rows copied."""
         if not self._runs or "conv" not in self.state["cache"]:
-            return
+            return 0
         cache = self.state["cache"]
         dst = torch.tensor([f for f, _ in forks], device=self.device)
         src = torch.tensor([ldr for _, ldr in forks], device=self.device)
         self.blocking_transfers += 2
         for k in ("conv", "ssd"):
-            cache[k][:, dst] = cache[k][:, src]
+            for layer in cache[k]:
+                layer[dst] = layer[src]
+        return len(forks)
 
     def _release_slot_pages(self, s: int) -> None:
         """Rollout finished: drop the slot's page references (shared prefix
@@ -862,8 +870,10 @@ class GenerationEngine:
                         pre.set(chunks=chunks, rows=rows,
                                 leaders=new_plen[prefill_mask].tolist())
             if forks:
-                with trace.span("engine.refill.fork"):
-                    self._fork(forks)
+                with trace.span("engine.refill.fork") as fk:
+                    state_rows = self._fork(forks)
+                    if fk:
+                        fk.set(state_rows=state_rows)
             if self._paged:
                 self.last_admit_pages = self.allocator.total_allocs - allocs0
             n = int(mask.sum())
@@ -1003,15 +1013,16 @@ class GenerationEngine:
         self.prompt_prefills += int(prefill_mask.sum())
         return len(offsets), n_rows
 
-    def _fork(self, forks: List[Tuple[int, int]]) -> None:
+    def _fork(self, forks: List[Tuple[int, int]]) -> int:
         """Each (fork, leader) pair shares the leader's prefix pages
-        copy-on-write (and takes a copy of its recurrent rows)."""
+        copy-on-write (and takes a copy of its recurrent rows). Returns
+        the recurrent slot rows copied."""
         for f, ldr in forks:
             self.tables.fork_row(f, ldr)
         self._bt_dirty = True
         self._sync_tables()
         self.prefix_forks += len(forks)
-        self._copy_fork_rows(forks)
+        return self._copy_fork_rows(forks)
 
     @property
     def n_active(self) -> int:

@@ -132,7 +132,8 @@ def _naive_causal_attention(q, k, v, *, scale: float, segment_ids=None,
 
 def _project(p: Dict[str, torch.Tensor], x: torch.Tensor, positions,
              cfg: ModelConfig):
-    """q (B,S,H,Dh), k and v (B,S,KV,Dh), normed and rotated. The (d,H,Dh)
+    """q (B,S,H,Dh), k and v (B,S,KV,Dh), normed and rotated (not rotated
+    where the config's position embedding is "nope"). The (d,H,Dh)
     weights are used through (d, H*Dh) views."""
     def proj(w):
         return split_last(x @ merge_dims(w, 1), w.shape[1], w.shape[2])
@@ -141,8 +142,9 @@ def _project(p: Dict[str, torch.Tensor], x: torch.Tensor, positions,
     if cfg.use_qk_norm:
         q = rms_norm(q, p["qn"], cfg.norm_eps)
         k = rms_norm(k, p["kn"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.position_embedding == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 

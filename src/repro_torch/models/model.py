@@ -1,18 +1,23 @@
 """The decoder LM of the port: one definition for the dense GQA decoder,
 the attention-free Mamba2 (SSM) stack, the Hymba hybrid (attention and SSM
-heads in parallel in every layer), routed experts (MoE), DeepSeek-V3's
-latent attention (MLA) with its leading dense layers and multi-token
-prediction (MTP) head, and the multimodal prefix of the vision and audio
-configs. Parameters, full-sequence forward, one-token decode and chunked
-prefill against the slot cache or the paged pool.
+heads in parallel in every layer), Granite 4.0-H's interleaved layers (one
+token mixer a layer, attention or Mamba2, by `layer_pattern`), routed
+experts (MoE), DeepSeek-V3's latent attention (MLA) with its leading dense
+layers and multi-token prediction (MTP) head, and the multimodal prefix of
+the vision and audio configs. Parameters, full-sequence forward, one-token
+decode and chunked prefill against the slot cache or the paged pool.
 
 Parameters are a nested dict in the JAX package's layout: stacked
 `(count, ...)` leaves under `groups[i]`, one group per `(kind, count)` of
 `layer_groups`, so a tree converts leaf for leaf between the two packages
 (`repro_torch.convert`). The JAX package scans over each group's layers;
-here a Python loop walks per-layer views of the stacked leaves. Decode and
-prefill update the cache tensors in place: attention K/V, and the SSM's
-conv and SSD state, or MLA's latent `c_kv` and `k_rope`. The
+here a Python loop walks per-layer views of the stacked leaves, in the
+published order (`iter_layers`): an interleaved config stacks each
+mixer's layers in a group of their own, and its caches stack the attention
+leaves over its attention layers and the SSM leaves over its Mamba2
+layers, each indexed by the layer's ordinal among its mixer's layers.
+Decode and prefill update the cache tensors in place: attention K/V, and
+the SSM's conv and SSD state, or MLA's latent `c_kv` and `k_rope`. The
 full-sequence forward is also the training forward: packed batches
 (`segment_ids`), the fused lm-head loss (`loss_targets` with
 `cfg.fused_loss`), the MoE load-balance loss
@@ -43,7 +48,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch import shardctx
+from repro_torch import shardctx, trace
 from repro_torch.models.layers import init_leaf, pad_before, rms_norm, swiglu
 from repro_torch.shardctx import (constrain, current_mesh, is_distributed,
                                   merged_rules, redistribute)
@@ -58,7 +63,12 @@ Params = Dict[str, Any]
 def layer_groups(cfg: ModelConfig) -> List[Tuple[str, int]]:
     """[(ffn kind, n_layers)], kind in {dense, moe, none}: the leading dense
     layers of an MoE config, then its MoE layers; "none" for d_ff == 0 (the
-    Mamba2 block alone, no norm2 and no FFN)."""
+    Mamba2 block alone, no norm2 and no FFN). An interleaved config has one
+    group of each mixer's layers (`group_mixers`)."""
+    if cfg.layer_pattern:
+        kind = "dense" if cfg.d_ff else "none"
+        return [(kind, cfg.layer_pattern.count(m))
+                for m in group_mixers(cfg)]
     if cfg.n_experts:
         if cfg.n_dense_layers:
             return [("dense", cfg.n_dense_layers),
@@ -67,6 +77,16 @@ def layer_groups(cfg: ModelConfig) -> List[Tuple[str, int]]:
     if cfg.d_ff == 0:
         return [("none", cfg.n_layers)]
     return [("dense", cfg.n_layers)]
+
+
+def group_mixers(cfg: ModelConfig) -> str:
+    """Each group's token mixer, one letter a group as
+    `ModelConfig.mixers` names them: an interleaved config's groups in the
+    order its pattern first names their mixers; every group of another
+    config has the one mixer of all its layers."""
+    if cfg.layer_pattern:
+        return "".join(dict.fromkeys(cfg.layer_pattern))
+    return cfg.mixers[:1] * len(layer_groups(cfg))
 
 
 def _attention_shapes(cfg: ModelConfig, count: int) -> Dict[str, Any]:
@@ -106,15 +126,16 @@ def _attention_shapes(cfg: ModelConfig, count: int) -> Dict[str, Any]:
     return a
 
 
-def _group_shapes(cfg: ModelConfig, kind: str, count: int) -> Dict[str, Any]:
+def _group_shapes(cfg: ModelConfig, kind: str, count: int,
+                  mixer: str) -> Dict[str, Any]:
     d, dt = cfg.d_model, cfg.dtype
     norm = ((count, d), dt, -1.0, ("layers", "p_embed"))
     g: Dict[str, Any] = {"norm1": norm}
-    if cfg.has_attention:
+    if mixer != "M":
         g["attn"] = _attention_shapes(cfg, count)
-    if cfg.has_ssm:
+    if mixer != "A":
         g["ssm"] = ssm_mod.ssm_shapes(cfg, count)
-    if cfg.arch_type == "hybrid":
+    if mixer == "H":
         # Hymba: per-branch output norms, fused by averaging
         g["hyb_norm_a"] = norm
         g["hyb_norm_s"] = norm
@@ -143,8 +164,9 @@ def param_entries(cfg: ModelConfig) -> Dict[str, Any]:
     shapes: Dict[str, Any] = {
         "embed": ((V, d), dt, 0.02, ("p_embed_vocab", "p_embed")),
         "final_norm": ((d,), dt, -1.0, ("p_embed",)),
-        "groups": [_group_shapes(cfg, kind, count)
-                   for kind, count in layer_groups(cfg)],
+        "groups": [_group_shapes(cfg, kind, count, mixer)
+                   for (kind, count), mixer in zip(layer_groups(cfg),
+                                                   group_mixers(cfg))],
     }
     if not cfg.tie_embeddings:
         shapes["lm_head"] = ((d, V), dt, 0.02, ("p_embed", "p_vocab"))
@@ -160,7 +182,7 @@ def param_entries(cfg: ModelConfig) -> Dict[str, Any]:
                                   ("p_embed", "p_embed")),
                          "norm_h": ((d,), dt, -1.0, ("p_embed",)),
                          "norm_e": ((d,), dt, -1.0, ("p_embed",)),
-                         "layer": _group_shapes(cfg, "dense", 1)}
+                         "layer": _group_shapes(cfg, "dense", 1, "A")}
     return shapes
 
 
@@ -207,14 +229,26 @@ def layer_views(tree, n_layers: int) -> List[Any]:
 
 
 def iter_layers(params: Params, cfg: ModelConfig
-                ) -> Iterator[Tuple[int, str, Dict[str, Any]]]:
-    """(layer index over the whole stack, ffn kind, that layer's views) for
-    every layer, walking the groups in order."""
-    l = 0
-    for (kind, count), gp in zip(layer_groups(cfg), params["groups"]):
-        for lp in layer_views(gp, count):
-            yield l, kind, lp
-            l += 1
+                ) -> Iterator[Tuple[int, str, str, int, Dict[str, Any]]]:
+    """(layer index over the whole stack, ffn kind, token mixer, the
+    layer's index into its mixer's cache leaves, that layer's views) for
+    every layer in the published order. Every layer of a config without a
+    pattern has the one mixer, and its cache index is the layer's own; an
+    interleaved config takes each layer from its mixer's group, and its
+    cache index is its ordinal among that mixer's layers
+    (`ModelConfig.mixer_ordinals`, resolved once a config)."""
+    groups = layer_groups(cfg)
+    if not cfg.layer_pattern:
+        mixer, l = cfg.mixers[:1], 0
+        for (kind, count), gp in zip(groups, params["groups"]):
+            for lp in layer_views(gp, count):
+                yield l, kind, mixer, l, lp
+                l += 1
+        return
+    views = {m: layer_views(gp, count) for m, (_, count), gp in
+             zip(group_mixers(cfg), groups, params["groups"])}
+    for l, (m, i) in enumerate(cfg.mixer_ordinals):
+        yield l, groups[0][0], m, i, views[m][i]
 
 
 def _embed(params: Params, tokens) -> torch.Tensor:
@@ -249,18 +283,18 @@ def _head(params: Params, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _mix(cfg: ModelConfig, lp, x, attn_fn, ssm_fn):
-    """The token mixer of one layer on its normed input x: attention, the
-    SSM, or (Hymba) both on the same x, each branch through its own RMS
-    norm and the two averaged. attn_fn(attention params, x) and
-    ssm_fn(SSM params, x) run the path's own primitive (and write its
-    cache)."""
-    if cfg.arch_type == "hybrid":
+def _mix(cfg: ModelConfig, mixer: str, lp, x, attn_fn, ssm_fn):
+    """The token mixer of one layer (`ModelConfig.mixers`) on its normed
+    input x: attention, the SSM, or (Hymba) both on the same x, each branch
+    through its own RMS norm and the two averaged. attn_fn(attention
+    params, x) and ssm_fn(SSM params, x) run the path's own primitive (and
+    write its cache)."""
+    if mixer == "H":
         a = attn_fn(lp["attn"], x)
         s = ssm_fn(lp["ssm"], x)
         return 0.5 * (rms_norm(a, lp["hyb_norm_a"], cfg.norm_eps)
                       + rms_norm(s, lp["hyb_norm_s"], cfg.norm_eps))
-    if cfg.arch_type == "ssm":
+    if mixer == "M":
         return ssm_fn(lp["ssm"], x)
     return attn_fn(lp["attn"], x)
 
@@ -332,7 +366,7 @@ def _mtp_hidden(params: Params, cfg: ModelConfig, hidden, tokens,
                       cfg.norm_eps)
     x = torch.cat([h_t, e_next], dim=-1) @ mp["proj"]
     (lp,) = layer_views(mp["layer"], 1)
-    x, _, _ = _layer(cfg, "dense", x, lp, positions[:, 1:], None)
+    x, _, _ = _layer(cfg, "dense", "A", x, lp, positions[:, 1:], None)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -375,8 +409,8 @@ def _outputs(params: Params, cfg: ModelConfig, h, logits: bool,
 # forward (full sequence)
 # ---------------------------------------------------------------------------
 
-def _layer(cfg: ModelConfig, kind: str, h, lp, positions, segment_ids,
-           want_cache: bool = False):
+def _layer(cfg: ModelConfig, kind: str, mixer: str, h, lp, positions,
+           segment_ids, want_cache: bool = False):
     """One layer; h: (B,S,d). Returns (h, aux or None, its cache leaves or
     None)."""
     cache: Dict[str, torch.Tensor] = {}
@@ -400,7 +434,7 @@ def _layer(cfg: ModelConfig, kind: str, h, lp, positions, segment_ids,
         return s
 
     x = rms_norm(h, lp["norm1"], cfg.norm_eps)
-    h = constrain(h + _mix(cfg, lp, x, attn_fn, ssm_fn),
+    h = constrain(h + _mix(cfg, mixer, lp, x, attn_fn, ssm_fn),
                   ("batch", "seq", "embed"))
     h, aux = _ffn(cfg, kind, h, lp)
     h = constrain(h, ("batch", "seq", "embed"))
@@ -458,17 +492,18 @@ def forward(params: Params, tokens, positions, cfg: ModelConfig, *,
     # for CUDA tensors: it re-enters this call's sharding context
     sctx = shardctx.current()
 
-    def layer_again(hh, lp, kind):
+    def layer_again(hh, lp, kind, mixer):
         with shardctx.resume(sctx):
-            return _layer(cfg, kind, hh, lp, positions, segment_ids)[:2]
+            return _layer(cfg, kind, mixer, hh, lp, positions,
+                          segment_ids)[:2]
 
-    for _, kind, lp in iter_layers(params, cfg):
+    for _, kind, mixer, _, lp in iter_layers(params, cfg):
         if remat:
-            h, aux = checkpoint(layer_again, h, lp, kind,
+            h, aux = checkpoint(layer_again, h, lp, kind, mixer,
                                 use_reentrant=False)
         else:
-            h, aux, c = _layer(cfg, kind, h, lp, positions, segment_ids,
-                               return_cache)
+            h, aux, c = _layer(cfg, kind, mixer, h, lp, positions,
+                               segment_ids, return_cache)
             if return_cache:
                 caches.append(c)
         if aux is not None:
@@ -480,9 +515,12 @@ def forward(params: Params, tokens, positions, cfg: ModelConfig, *,
                                 tok_positions, fused))
     out["aux_loss"] = total_aux
     if return_cache:
-        out["cache"] = {k: constrain(torch.stack([c[k] for c in caches]),
+        # each leaf stacked over the layers that hold it
+        keys = dict.fromkeys(k for c in caches for k in c)
+        out["cache"] = {k: constrain(torch.stack([c[k] for c in caches
+                                                  if k in c]),
                                      CACHE_LOGICAL[k])
-                        for k in caches[0]}
+                        for k in keys}
     return out
 
 
@@ -508,29 +546,30 @@ def decode_step(params: Params, tokens, positions, cache, cache_index,
         ring = (("k" in cache or "c_kv" in cache)
                 and cfg.attention_variant == "sliding_window")
     h = constrain(_embed(params, tokens), ("batch", "seq", "embed"))
-    for l, kind, lp in iter_layers(params, cfg):
+    for l, kind, mixer, i, lp in iter_layers(params, cfg):
 
-        def attn_fn(pa, x, l=l):
+        def attn_fn(pa, x, i=i):
             if cfg.use_mla:
-                return attn.mla_decode(pa, x, positions, cache["c_kv"][l],
-                                       cache["k_rope"][l], cache_index, cfg,
+                return attn.mla_decode(pa, x, positions, cache["c_kv"][i],
+                                       cache["k_rope"][i], cache_index, cfg,
                                        ring, block_tables=block_tables)
-            return attn.gqa_decode(pa, x, positions, cache["k"][l],
-                                   cache["v"][l], cache_index, cfg, ring,
+            return attn.gqa_decode(pa, x, positions, cache["k"][i],
+                                   cache["v"][i], cache_index, cfg, ring,
                                    block_tables=block_tables,
                                    paged_kernel=paged_kernel)
 
-        def ssm_fn(ps, x, l=l):
-            s, (conv, ssd) = ssm_mod.ssm_decode(ps, x, cache["conv"][l],
-                                                cache["ssd"][l], cfg)
-            cache["conv"][l].copy_(conv)
-            cache["ssd"][l].copy_(ssd)
+        def ssm_fn(ps, x, i=i, l=l):
+            with trace.span("model.decode.ssm", layer=l):
+                s, (conv, ssd) = ssm_mod.ssm_decode(ps, x, cache["conv"][i],
+                                                    cache["ssd"][i], cfg)
+                cache["conv"][i].copy_(conv)
+                cache["ssd"][i].copy_(ssd)
             return s
 
         # the residual stream is held replicated after each half, as the
         # JAX package's layer scan holds its carry
         x = rms_norm(h, lp["norm1"], cfg.norm_eps)
-        h = constrain(h + _mix(cfg, lp, x, attn_fn, ssm_fn),
+        h = constrain(h + _mix(cfg, mixer, lp, x, attn_fn, ssm_fn),
                       ("batch", "seq", "embed"))
         h, _ = _ffn(cfg, kind, h, lp)
         h = constrain(h, ("batch", "seq", "embed"))
@@ -579,20 +618,20 @@ def prefill_chunk(params: Params, tokens, prompt_len, offset: int, admit_mask,
     kv_write_mask = admit_mask[:, None] & pos_valid              # (B,C)
     tok_mask = pos_valid.float()
     h = constrain(_embed(params, toks), ("batch", "seq", "embed"))
-    for l, kind, lp in iter_layers(params, cfg):
+    for l, kind, mixer, i, lp in iter_layers(params, cfg):
 
-        def attn_fn(pa, x, l=l):
+        def attn_fn(pa, x, i=i):
             if cfg.use_mla:
                 return attn.mla_prefill_chunk(
-                    pa, x, positions, cache["c_kv"][l], cache["k_rope"][l],
+                    pa, x, positions, cache["c_kv"][i], cache["k_rope"][i],
                     offset, kv_write_mask, cfg, block_tables=block_tables)
-            return attn.gqa_prefill_chunk(pa, x, positions, cache["k"][l],
-                                          cache["v"][l], offset,
+            return attn.gqa_prefill_chunk(pa, x, positions, cache["k"][i],
+                                          cache["v"][i], offset,
                                           kv_write_mask, cfg,
                                           block_tables=block_tables)
 
-        def ssm_fn(ps, x, l=l):
-            conv, ssd = cache["conv"][l], cache["ssd"][l]
+        def ssm_fn(ps, x, i=i):
+            conv, ssd = cache["conv"][i], cache["ssd"][i]
             s, (nconv, nssd) = ssm_mod.ssm_forward(
                 ps, x, cfg, return_state=True, initial_state=(conv, ssd),
                 token_mask=tok_mask)
@@ -602,7 +641,7 @@ def prefill_chunk(params: Params, tokens, prompt_len, offset: int, admit_mask,
             return s
 
         x = rms_norm(h, lp["norm1"], cfg.norm_eps)
-        h = constrain(h + _mix(cfg, lp, x, attn_fn, ssm_fn),
+        h = constrain(h + _mix(cfg, mixer, lp, x, attn_fn, ssm_fn),
                       ("batch", "seq", "embed"))
         if logits or l + 1 < cfg.n_layers:  # else the last FFN feeds nothing
             h, _ = _ffn(cfg, kind, h, lp)

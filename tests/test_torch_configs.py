@@ -2,9 +2,10 @@
 multimodal prefix (phi-3-vision, musicgen) through the forward and the
 Trainer, on the CPU.
 
-- The registry serves every config of the JAX package, and each equals
-  the JAX package's of the same name field by field (the dtype mapped),
-  with the same analytic parameter count.
+- The registry serves every config of the JAX package and the port's own
+  (`PORT_ONLY`), and each of the first equals the JAX package's of the
+  same name field by field (the dtype mapped; the port's own fields at
+  their defaults), with the same analytic parameter count.
 - `param_shapes` gives the JAX `param_defs` tree leaf for leaf (shape,
   dtype, init scale) at full size, for every config (deepseek-v3's MLA
   leaves and MTP head included); the JAX fields the port leaves out are
@@ -37,14 +38,17 @@ from repro.models.layers import ParamDef
 from repro.optim.adam import AdamConfig as JaxAdamConfig
 from repro.sharding import tree_values
 from repro_torch import AdamConfig, Trainer
-from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.configs.base import kv_cache_specs, paged_cache_specs
+from repro_torch.configs import ARCH_IDS, PORT_ONLY, get_config
+from repro_torch.configs.base import (PORT_OWN_FIELDS, kv_cache_specs,
+                                      paged_cache_specs)
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.weights import tree_flatten
 from repro_torch.data.packing import Rollout, pack
 from repro_torch.models import model as M
 
 ATOL = 1e-5
+# the configs with a twin in the JAX package
+TWIN_IDS = [a for a in ARCH_IDS if a not in PORT_ONLY]
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
@@ -56,20 +60,23 @@ def _port_config(jcfg, arch):
     """The port's config of `arch` with every field of the JAX `jcfg`."""
     tcfg = get_config(arch)
     same = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(tcfg)
-            if f.name != "dtype"}
+            if f.name not in ("dtype",) + PORT_OWN_FIELDS}
     return dataclasses.replace(tcfg, dtype=DTYPES[jcfg.dtype], **same)
 
 
 def test_registry_serves_every_config():
     from repro.configs import ARCH_IDS as JAX_IDS
-    assert set(ARCH_IDS) == set(JAX_IDS) | {"tiny"}
-    assert len(ARCH_IDS) == 11
+    assert set(ARCH_IDS) == set(JAX_IDS) | {"tiny"} | set(PORT_ONLY)
+    assert len(ARCH_IDS) == 12
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", TWIN_IDS)
 def test_config_equals_jax_field_by_field(arch):
     jcfg, tcfg = _jax_config(arch), get_config(arch)
     for f in dataclasses.fields(tcfg):
+        if f.name in PORT_OWN_FIELDS:
+            assert getattr(tcfg, f.name) == f.default, f.name
+            continue
         want = getattr(jcfg, f.name)
         if f.name == "dtype":
             want = DTYPES[want]
@@ -106,7 +113,7 @@ def _flat_shapes(tree, path=""):
     return out
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", TWIN_IDS)
 def test_param_shapes_equal_the_jax_tree(arch):
     """Full size, no allocation: every leaf's shape, dtype and init scale
     (the float32 router of the MoE config, the hybrid's branch norms, the
@@ -134,7 +141,7 @@ def test_param_shapes_equal_the_jax_tree(arch):
                                                tcfg.dense_d_ff)
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", TWIN_IDS)
 def test_smoke_params_convert_leaf_for_leaf(arch):
     """At smoke size, the JAX `init_params` tree converts into the port's
     tree and back with every leaf's shape and dtype."""
@@ -158,7 +165,7 @@ _LEFT_OUT = {"router_aux_coef", "hybrid_parallel", "use_pallas",
              "pallas_interpret", "scan_unroll"}
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", TWIN_IDS)
 def test_fields_left_out_are_not_needed(arch):
     """Each JAX field the port lacks holds, in every ported config, a value
     that the port's own fields already say."""

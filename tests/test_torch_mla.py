@@ -32,7 +32,7 @@ from repro.models import attention as JA
 from repro.models import model as JM
 from repro.sharding import tree_values
 from repro_torch import get_config
-from repro_torch.configs.base import kv_cache_specs
+from repro_torch.configs.base import PORT_OWN_FIELDS, kv_cache_specs
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels import ops
 from repro_torch.models import attention as TA
@@ -48,7 +48,7 @@ def _configs(**kw):
         "deepseek-v3-671b")), **kw)
     tcfg = get_config("deepseek-v3-671b")
     same = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(tcfg)
-            if f.name != "dtype"}
+            if f.name not in ("dtype",) + PORT_OWN_FIELDS}
     return jcfg, dataclasses.replace(tcfg, dtype=torch.float32, **same)
 
 

@@ -40,6 +40,7 @@ from repro.optim.adam import AdamConfig as JaxAdamConfig
 from repro.sharding import tree_values
 from repro_torch import (AdamConfig, EngineConfig, GenerationEngine,
                          PreprocessConfig, Preprocessor, Trainer, get_config)
+from repro_torch.configs.base import PORT_OWN_FIELDS
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.weights import tree_flatten
 from repro_torch.data.math_task import MathTask, Problem
@@ -57,7 +58,7 @@ def _configs(**kw):
         "deepseek-v3-671b")), vocab_size=VOCAB, **kw)
     tcfg = get_config("deepseek-v3-671b")
     same = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(tcfg)
-            if f.name != "dtype"}
+            if f.name not in ("dtype",) + PORT_OWN_FIELDS}
     return jcfg, dataclasses.replace(tcfg, dtype=torch.float32, **same)
 
 

@@ -23,6 +23,7 @@ from repro.models import layers as JL
 from repro.models import model as JM
 from repro.sharding import tree_values
 from repro_torch.configs import tiny as port_tiny
+from repro_torch.configs.base import PORT_OWN_FIELDS
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.core import weights as W
 from repro_torch.models import layers as TL
@@ -78,6 +79,9 @@ def test_configs_match_jax(arch):
     jcfg = jax_tiny() if arch == "tiny" else jax_get(arch)
     tcfg = get_config(arch)
     for f in dataclasses.fields(tcfg):
+        if f.name in PORT_OWN_FIELDS:    # the port's own, at their defaults
+            assert getattr(tcfg, f.name) == f.default, f.name
+            continue
         want = getattr(jcfg, f.name)
         if f.name == "dtype":
             want = {jnp.float32: torch.float32,
